@@ -4,22 +4,37 @@
     python3 chip_smoke.py [n_layers]     # default: all 32 layers
 
 Phases, in order; any failure exits non-zero (nothing is caught):
-  1. device and build: the card's name and power limit; both CUDA sources
-     built with nvcc for sm_90a, with ptxas' register/shared-memory/spill
-     report;
+  1. device and build: the card's name and power limit; the three CUDA
+     sources built with nvcc for sm_90a, one process each, with ptxas'
+     register/shared-memory/spill report;
   2. each Hopper kernel against its plain PyTorch version: the reference's
-     kernel-test cases plus the main path's shapes (bf16 decode there held
-     to ``kernels.ref.MAIN_SHAPE_BF16_TOL``), with CUDA-event times of the
+     kernel-test cases (plus head_dim 16, the toy configs') and the main
+     path's shapes (bf16 there held to ``kernels.ref.MAIN_SHAPE_BF16_TOL``
+     and ``MAIN_SHAPE_PREFILL_BF16_TOL``), with CUDA-event times of the
      kernel alone, the plain version and a library yardstick, and the bound;
-  3. a toy fp32 engine on the card against the same engine on the CPU:
-     identical greedy tokens;
+  3. toy fp32 engines on the card against the same engines on the CPU, at
+     head_dim 16 (the reference's toy config) and 32: identical greedy
+     tokens, eager and chunked (chunk sizes 3 and 8, boundaries mid-page),
+     and chunked equal to eager; sentinel pool row 0 still zero after a
+     ragged fused batch;
   4. the main path at full width (``repro_torch.launch.main_path``):
      LocalDisaggEngine serving Llama-3.1-8B (32 layers, bf16, seeded random
      weights) with a base model and two full-weight decode models over a
      2048-page pool: a shared ~1000-token context, two requests per model,
      then a second turn that hits the prefix cache; launch counters are
      zeroed just before and read just after, and peak device memory must
-     stay within the weights, held once, plus the pool and 2 GiB.
+     stay within the weights, held once, plus the pool and 2 GiB;
+  5. the chunked main path: the same weights served by a new engine
+     (``chunked=True``, 200-token chunks, a 512-token budget) over a fresh
+     pool, phase 4's pool freed first; the same traffic. Every prefill goes
+     through ``flash_prefill_paged`` (and ``paged_write`` never launches);
+     the same memory bound; the chunk forwards are phase 2's shapes. The
+     shared context's K/V against phase 4's, relative norm per layer, is
+     held under a ceiling of (layer + 1) * 2**-8; how many greedy tokens
+     agree with phase 4 is printed, not asserted;
+  6. the same two paths at full width in fp32, depth cut to 4 layers, same
+     traffic: greedy tokens identical and context K/V within
+     ``FP32_KV_REL`` per layer.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -91,7 +106,25 @@ PAGED_CASES = [
     (1, 4, 4, 128, 32, 4, 16),
     (2, 8, 1, 64, 16, 16, 64),
     (4, 2, 2, 32, 8, 4, 20),
+    (4, 2, 1, 16, 8, 4, 20),           # head_dim 16 (the toy configs)
 ]
+PREFILL_CASES = [
+    # B, Hq, Hkv, D, page, npages, pool, S  (tests/test_kernels.py)
+    (2, 4, 2, 64, 8, 4, 16, 5),        # chunk boundary mid-page
+    (1, 8, 1, 32, 16, 3, 8, 16),       # MQA, chunk == page
+    (3, 2, 2, 64, 8, 6, 32, 7),        # MHA, ragged starts
+    (1, 4, 2, 128, 16, 2, 8, 1),       # degenerate single-token chunk
+    (2, 4, 2, 64, 8, 4, 12, 6),        # the reference's softcap case
+    (3, 2, 1, 16, 8, 6, 24, 11),       # head_dim 16 (the toy configs)
+    (2, 16, 2, 128, 16, 16, 64, 37),   # group 8, many row and key tiles
+]
+# the chunked main path's chunk forwards (phase 5), B, S, start: the shared
+# 1000-token context in 200-token chunks (starts mid-page), then each turn's
+# four tails batched into one forward past the 992 cached tokens: 40
+# uncached tokens each in turn 1, 72 in turn 2 (its context grew by turn 1's
+# 32-token answer)
+MAIN_CHUNKS = [(1, 200, st) for st in (0, 200, 400, 600, 800)] + [
+    (4, 40, 992), (4, 72, 992)]
 
 
 def phase_kernels(card):
@@ -251,6 +284,7 @@ def phase_kernels(card):
     del nk, nv, kpool, vpool, src_k, src_v
     torch.cuda.empty_cache()
     return {
+        "flash_prefill_paged": phase_prefill_kernel(card),
         "paged_decode": dict(max_abs_err=dec_err, ms=dec_ms,
                              plain_ms=dec_plain, bound_ms=dec_bound,
                              bound_by="bytes", library_ms=dec_lib),
@@ -260,62 +294,336 @@ def phase_kernels(card):
     }
 
 
+def prefill_bound_ms(start, S, Hq, Hkv, D, page, npages, itemsize) -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, flops) of one
+    flash_prefill_paged call: each visible K/V row, q and the output moved
+    once; 4 * Hq * D flops per visible (query, key) pair."""
+    T = npages * page
+    B = len(start)
+    kv_rows = sum(min(st + S, T) for st in start)
+    pairs = sum(min(st + i + 1, T) for st in start for i in range(S))
+    nbytes = (kv_rows * Hkv * D * 2 * itemsize + 2 * B * S * Hq * D * itemsize
+              + B * npages * 4 + B * 4)
+    flops = 4 * Hq * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_prefill_kernel(card):
+    """flash_prefill_paged against ref_paged_prefill on the card."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.ref import (MAIN_SHAPE_PREFILL_BF16_TOL,
+                                         ref_paged_prefill)
+    from repro_torch.serving.decode import next_pow2
+
+    dev = torch.device("cuda")
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    g = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+
+    def inputs(B, Hq, Hkv, D, page, npages, P, S, dtype, start=None,
+               bt=None):
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
+        kp = torch.randn((P, page, Hkv, D), generator=g, device=dev).to(dtype)
+        vp = torch.randn((P, page, Hkv, D), generator=g, device=dev).to(dtype)
+        if bt is None:
+            bt = rng.integers(0, P, (B, npages))
+        if start is None:               # anywhere, mid-page included
+            start = rng.integers(0, npages * page - S + 1, B)
+        return (q, kp, vp, torch.tensor(np.asarray(bt), dtype=torch.int32,
+                                        device=dev),
+                torch.tensor(np.asarray(start), dtype=torch.int32,
+                             device=dev))
+
+    for case in PREFILL_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for cap in (0.0, 30.0):
+                args = inputs(*case, dtype)
+                got = flash_prefill_paged(*args, softcap=cap)
+                want = ref_paged_prefill(*args, softcap=cap)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol[dtype], rtol=tol[dtype])
+                log(f"[flash_prefill_paged] case {case} {dtype} softcap "
+                    f"{cap} start {args[4].tolist()}: max|err| {err:.3e} "
+                    f"(tol {tol[dtype]})")
+
+    # the chunked main path's shapes (MAIN_CHUNKS); each table as wide as
+    # the scheduler buckets it, the next power of two of the pages in use
+    # (pages past the sequence are sentinel page 0)
+    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
+    perm = np.random.default_rng(4).permutation(np.arange(1, P))
+    perf = None
+    for B, S, st0 in MAIN_CHUNKS:
+        start = [st0] * B
+        live = -(-(st0 + S) // page)
+        npages = next_pow2(live)
+        bt = np.zeros((B, npages), np.int64)
+        for b in range(B):
+            bt[b, :live] = perm[b * live:(b + 1) * live]
+        q, kp, vp, btd, std = inputs(B, Hq, Hkv, D, page, npages, P, S,
+                                     torch.bfloat16, start, bt)
+        got = flash_prefill_paged(q, kp, vp, btd, std)
+        want = ref_paged_prefill(q, kp, vp, btd, std)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **MAIN_SHAPE_PREFILL_BF16_TOL)
+        ms = cuda_ms(lambda: flash_prefill_paged(q, kp, vp, btd, std))
+        plain = cuda_ms(lambda: ref_paged_prefill(q, kp, vp, btd, std))
+        # yardstick: K/V gathered into dense (B, Hkv, T, D) beforehand (not
+        # timed); a kv head's G query heads x S positions are SDPA's query
+        # rows (r = g * S + i), masked by absolute position
+        T = npages * page
+        G = Hq // Hkv
+        kd = kp[btd.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3) \
+            .contiguous()
+        vd = vp[btd.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3) \
+            .contiguous()
+        qd = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(
+            B, Hkv, G * S, D).contiguous()
+        qpos = (std[:, None] + torch.arange(S, device=dev)[None]).repeat(
+            1, G)                                            # (B, G * S)
+        mask = (torch.arange(T, device=dev)[None, None]
+                <= qpos[:, :, None])[:, None]                # (B,1,G*S,T)
+        lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+        lib_o = lib.reshape(B, Hkv, G, S, D).permute(0, 3, 1, 2, 4).reshape(
+            B, S, Hq, D)
+        torch.testing.assert_close(lib_o.float(), want.float(),   # sanity
+                                   atol=2e-2, rtol=2e-2)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        bound, by, nbytes, flops = prefill_bound_ms(start, S, Hq, Hkv, D,
+                                                    page, npages, 2)
+        log(f"[flash_prefill_paged] main shape B={B} S={S} start "
+            f"{start[0]} Hq={Hq} Hkv={Hkv} D={D} page={page} npages="
+            f"{npages} bf16: max|err| {err:.3e}, relative norm {rel:.3e} "
+            f"(tol {MAIN_SHAPE_PREFILL_BF16_TOL}); kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa on pre-gathered dense K/V (gather "
+            f"excluded) {lib_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({nbytes} B, {flops} flop) on {card}")
+        if start[0] == 800:             # the heaviest context chunk
+            perf = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, kp, vp, kd, vd, qd, mask, lib
+    torch.cuda.empty_cache()
+    return perf
+
+
 # ======================================================================
 # phase 3
 
 
+TOY16 = dict(name="paged-eng", arch_type="dense", n_layers=2, d_model=32,
+             n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
+             dtype="float32")                  # tests/test_paged_engine.py
+TOY32 = dict(TOY16, head_dim=32)
+
+
+def toy_run(cfg, params, dev, **engine_kw):
+    """Two turns x two models over a growing session context (copy-on-write
+    tails, prefix hits); returns (greedy tokens, engine)."""
+    import numpy as np
+
+    from repro_torch.params import tree_map
+    from repro_torch.serving import LocalDisaggEngine, SamplingParams
+
+    p = {m: tree_map(lambda t: t.to(dev), t) for m, t in params.items()}
+    eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"], "m1": p["m1"]},
+                            device=dev, num_pages=64, page_size=8,
+                            **engine_kw)
+    rng = np.random.default_rng(0)
+    ctx = [int(t) for t in rng.integers(4, 60, 19)]
+    got = []
+    for turn in range(2):
+        for mid in ("m0", "m1"):
+            ctx += [int(t) for t in rng.integers(4, 60, 5)]
+            out = eng.generate(mid, ctx, SamplingParams(max_tokens=4),
+                               session=0).result().tolist()
+            got.append(out)
+            ctx += out
+    assert eng.stats.cow_page_copies > 0
+    return got, eng
+
+
 def phase_toy_engine():
     import numpy as np
+    import torch
 
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import init_params
     from repro_torch.params import tree_map
     from repro_torch.serving import LocalDisaggEngine, SamplingParams
 
-    # tests/test_paged_engine.py's fp32 toy config, with head_dim 32 (the
-    # kernel is built for head_dim 32, 64 and 128; the toy's own is 16)
-    cfg = ModelConfig(name="paged-eng", arch_type="dense", n_layers=2,
-                      d_model=32, n_heads=2, n_kv_heads=1, head_dim=32,
-                      d_ff=64, vocab_size=64, dtype="float32")
-    cpu = {m: init_params(cfg, s, device="cpu")
-           for m, s in (("base", 0), ("m0", 10), ("m1", 11))}
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        p = {m: tree_map(lambda t: t.to(dev), t) for m, t in cpu.items()}
-        eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"],
-                                                 "m1": p["m1"]},
-                                device=dev, num_pages=64, page_size=8)
-        rng = np.random.default_rng(0)
-        ctx = [int(t) for t in rng.integers(4, 60, 19)]
-        got = []
-        for turn in range(2):
-            for mid in ("m0", "m1"):
-                ctx += [int(t) for t in rng.integers(4, 60, 5)]
-                out = eng.generate(mid, ctx, SamplingParams(max_tokens=4),
-                                   session=0).result().tolist()
-                got.append(out)
-                ctx += out
-        assert eng.stats.cow_page_copies > 0
-        outs[dev] = got
-    assert outs["cuda"] == outs["cpu"], outs
-    log(f"[toy engine] card tokens == CPU tokens: {outs['cuda']}")
+    for kw in (TOY16, TOY32):
+        cfg = ModelConfig(**kw)
+        cpu = {m: init_params(cfg, s, device="cpu")
+               for m, s in (("base", 0), ("m0", 10), ("m1", 11))}
+        outs = {dev: toy_run(cfg, cpu, dev)[0] for dev in ("cpu", "cuda")}
+        assert outs["cuda"] == outs["cpu"], outs
+        log(f"[toy engine] head_dim {cfg.head_dim}: card tokens == CPU "
+            f"tokens: {outs['cuda']}")
+        if cfg.head_dim != 16:
+            continue
+        # chunked: boundaries mid-page (page 8), card == CPU == eager
+        for chunk in (3, 8):
+            got = {}
+            for dev in ("cpu", "cuda"):
+                got[dev], eng = toy_run(cfg, cpu, dev, chunked=True,
+                                        chunk_size=chunk, token_budget=16)
+                assert eng.scheduler.stats.chunks > 1, eng.scheduler.stats
+            assert got["cuda"] == got["cpu"] == outs["cuda"], (got, outs)
+            log(f"[toy engine] head_dim 16 chunked, chunk_size {chunk}: "
+                f"card tokens == CPU chunked tokens == card eager tokens")
+
+        # sentinel row 0: a ragged fused batch (two m0 rows, one m1 row)
+        # has a padding row; nothing may write pool row 0
+        rng = np.random.default_rng(3)
+        jobs = [(list(rng.integers(4, 60, size=n)), m)
+                for n, m in ((37, "m0"), (9, "m0"), (20, "m1"))]
+        p = {m: tree_map(lambda t: t.to("cuda"), t) for m, t in cpu.items()}
+
+        def engine():
+            return LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"],
+                                                      "m1": p["m1"]},
+                                     device="cuda", num_pages=64,
+                                     page_size=8)
+        eng = engine()
+        outs = [eng.generate(m, ctx, SamplingParams(max_tokens=5))
+                for ctx, m in jobs]
+        eng.run()
+        assert eng.stats.decode_dispatches == eng.stats.decode_steps
+        kv = eng.kvpool
+        for a in (*kv.k_groups.values(), *kv.v_groups.values()):
+            assert not a[:, 0].any(), "a group layer wrote sentinel row 0"
+        for a in (*kv.k_tail, *kv.v_tail):
+            assert not a[0].any(), "a tail layer wrote sentinel row 0"
+        alone = [engine().generate(m, ctx, SamplingParams(max_tokens=5))
+                 .result().tolist() for ctx, m in jobs]
+        assert [o.tokens for o in outs] == alone, (outs, alone)
+        torch.cuda.synchronize()
+        log(f"[toy engine] head_dim 16 ragged fused batch (m0, m0, m1): "
+            f"sentinel row 0 of every layer is zero; tokens == isolated "
+            f"runs: {alone}")
 
 
 # ======================================================================
 # phase 4
 
 
-def phase_main_path(card, n_layers: int):
+def counters():
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.paged_decode import paged_decode_attention
+    from repro_torch.kernels.paged_write import paged_write
+    return {"paged_decode": paged_decode_attention,
+            "paged_write": paged_write,
+            "flash_prefill_paged": flash_prefill_paged}
+
+
+def serve_turns(eng, cfg, card, tag):
+    """The main path's traffic: a shared 1000-token context, then two turns
+    of 4 requests (2 per model, 32-token private tails, 32 greedy tokens
+    each); the second turn's context grows by the first answer. Launch
+    counters are zeroed just before and read just after. Returns
+    (launches, requests, per-turn records, context prefill seconds, the
+    shared context's K and V rows as ``context_kv`` reads them)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels.paged_decode import paged_decode_attention
-    from repro_torch.kernels.paged_write import paged_write
-    from repro_torch.launch.main_path import (MODEL, PROMPT_TOKENS,
-                                              TAIL_TOKENS, build_engine,
-                                              resident_bytes, tokens)
+    from repro_torch.launch.main_path import PROMPT_TOKENS, TAIL_TOKENS, tokens
     from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(0)
+    prompt = tokens(cfg, rng, PROMPT_TOKENS)
+    tails = [tokens(cfg, rng, TAIL_TOKENS) for _ in range(8)]
+    params = SamplingParams(max_tokens=32)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    t_start = time.perf_counter()
+    reqs, turns = [], []
+    ctx = eng.shared_context(prompt)
+    torch.cuda.synchronize()
+    context_s = time.perf_counter() - t_start
+    log(f"[{tag}] shared context: {len(prompt)} tokens prefilled in "
+        f"{context_s:.4f} s on {card}")
+    kv = context_kv(eng, ctx.session_id, len(prompt))
+    with ctx:
+        for turn in range(2):
+            outs = [ctx.generate(m, tails[4 * turn + 2 * i + j], params)
+                    for i, m in enumerate(("m0", "m1")) for j in range(2)]
+            t0 = time.perf_counter()
+            steps0 = eng.stats.decode_steps
+            eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ntok = sum(len(o.tokens) for o in outs)
+            rec = dict(tok_s=ntok / dt, ttft=[o.ttft for o in outs],
+                       steps=eng.stats.decode_steps - steps0, s=dt)
+            log(f"[{tag}] turn {turn}: {len(outs)} requests, {ntok} tokens "
+                f"in {rec['steps']} decode steps, {dt:.3f} s -> "
+                f"{rec['tok_s']:.1f} decode tok/s; TTFT s "
+                f"{[round(t, 4) for t in rec['ttft']]} on {card}")
+            reqs += outs
+            turns.append(rec)
+            ctx.extend(outs[0].tokens)         # next turn: a longer context
+    launches = {n: fn.launches for n, fn in fns.items()}
+    log(f"[{tag}] launches {launches}; wall "
+        f"{time.perf_counter() - t_start:.3f} s")
+    for o in reqs:
+        assert o.finished and len(o.tokens) == 32, o
+        assert all(0 <= t < cfg.vocab_size for t in o.tokens), o
+    return launches, reqs, turns, context_s, kv
+
+
+def context_kv(eng, sid: int, n: int):
+    """Copies of the first ``n`` K and V rows of session ``sid`` in every
+    layer of the pool, (n_layers, n, Hkv, D) each."""
+    import torch
+    bt = next(w.sessions[sid].block_table for w in eng.prefill_workers
+              if sid in w.sessions)
+    idx = torch.tensor(bt, dtype=torch.long, device=eng.device)
+
+    def take(pages):
+        return torch.stack([p[idx].flatten(0, 1)[:n] for p in pages])
+    return tuple(take(pages) for pages in eng.kvpool.layers())
+
+
+def kv_rel_err(got, want) -> list:
+    """Per layer, ||K_got - K_want|| / ||K_want|| and the same for V, the
+    larger of the two."""
+    return [max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in ((got[0][i], want[0][i]), (got[1][i], want[1][i])))
+            for i in range(want[0].shape[0])]
+
+
+def check_memory(eng, mem0, card, tag):
+    """Peak device memory within the engine's weights (held once) and pool,
+    plus what was allocated before it, plus 2 GiB of activations."""
+    import torch
+
+    from repro_torch.launch.main_path import resident_bytes
+    peak = torch.cuda.max_memory_allocated()
+    held = resident_bytes(eng)
+    log(f"[{tag}] max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); "
+        f"weights + pool {held} B ({held / 2**30:.2f} GiB); allocated "
+        f"before {mem0} B on {card}")
+    assert peak <= mem0 + held + PEAK_SLACK_BYTES, (peak, mem0, held)
+
+
+def phase_main_path(card, n_layers: int):
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.main_path import MODEL, build_engine
 
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -330,59 +638,150 @@ def phase_main_path(card, n_layers: int):
         f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}; base + 2 decoders + 2048x16 pool "
         f"ready in {time.perf_counter() - t:.2f} s")
-
-    rng = np.random.default_rng(0)
-    prompt = tokens(cfg, rng, PROMPT_TOKENS)
-    tails = [tokens(cfg, rng, TAIL_TOKENS) for _ in range(8)]
     free0 = eng.block_pool.free_count
-    params = SamplingParams(max_tokens=32)
-
-    paged_decode_attention.launches = 0
-    paged_write.launches = 0
-    t_start = time.perf_counter()
-    reqs = []
-    with eng.shared_context(prompt) as ctx:
-        for turn in range(2):
-            outs = [ctx.generate(m, tails[4 * turn + 2 * i + j], params)
-                    for i, m in enumerate(("m0", "m1")) for j in range(2)]
-            t0 = time.perf_counter()
-            steps0 = eng.stats.decode_steps
-            eng.run()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            ntok = sum(len(o.tokens) for o in outs)
-            log(f"[main] turn {turn}: {len(outs)} requests, {ntok} tokens in "
-                f"{eng.stats.decode_steps - steps0} decode steps, "
-                f"{dt:.3f} s -> {ntok / dt:.1f} decode tok/s; TTFT s "
-                f"{[round(o.ttft, 4) for o in outs]} on {card}")
-            reqs += outs
-            ctx.extend(outs[0].tokens)         # next turn: a longer context
-    wall = time.perf_counter() - t_start
-    launches = {"paged_decode": paged_decode_attention.launches,
-                "paged_write": paged_write.launches}
+    launches, reqs, turns, context_s, kv = serve_turns(eng, cfg, card,
+                                                       "main")
 
     s = eng.stats()
     log(f"[main] stats {json.dumps(s)}")
-    for o in reqs:
-        assert o.finished and len(o.tokens) == 32, o
-        assert all(0 <= t < cfg.vocab_size for t in o.tokens), o
     assert s["prefill_tokens_reused"] > 0, s
     assert s["cow_page_copies"] > 0, s
     assert launches["paged_decode"] == cfg.n_layers * s["decode_dispatches"], \
         (launches, s)
     assert s["decode_dispatches"] == s["decode_steps"], s
     assert launches["paged_write"] > 0, launches
+    assert launches["flash_prefill_paged"] == 0, launches   # eager prefill
     assert eng.block_pool.free_count == free0, (eng.block_pool.free_count,
                                                 free0)
     eng.block_pool.check_invariants()
-    # the weights are held once: base + 2 decoders + pool, plus activations
-    peak = torch.cuda.max_memory_allocated()
-    held = resident_bytes(eng)
-    log(f"[main] launches {launches}; wall {wall:.3f} s; "
-        f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); weights + "
-        f"pool {held} B ({held / 2**30:.2f} GiB) on {card}")
-    assert peak <= mem0 + held + PEAK_SLACK_BYTES, (peak, mem0, held)
+    check_memory(eng, mem0, card, "main")
+    # no request handle is kept: each holds the engine, whose pool phase 5
+    # frees
+    return launches, dict(engine=eng, cfg=cfg, turns=turns,
+                          context_s=context_s, kv=kv,
+                          tokens=[list(o.tokens) for o in reqs])
+
+
+# ======================================================================
+# phase 5
+
+
+def phase_chunked(card, eager: dict):
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import CHUNKED, rebuild_engine
+
+    cfg = eager["cfg"]
+    old = eager.pop("engine")
+    eng = rebuild_engine(old, **CHUNKED)       # same weight tensors
+    del old                                    # frees phase 4's pool
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[chunked] {cfg.name}: {cfg.n_layers} layers over the same weights, "
+        f"fresh 2048x16 pool; {CHUNKED}")
+    free0 = eng.block_pool.free_count
+    launches, reqs, turns, context_s, kv = serve_turns(eng, cfg, card,
+                                                       "chunked")
+    log(f"[chunked] shared context prefill vs eager (same call): "
+        f"{context_s:.4f} s vs {eager['context_s']:.4f} s on {card}")
+    for t, (c, e) in enumerate(zip(turns, eager["turns"])):
+        # decode tok/s: tokens over the wall of run(), which in chunked
+        # mode also holds the tails' chunk forward
+        log(f"[chunked] turn {t} vs eager (same call): decode tok/s "
+            f"{c['tok_s']:.1f} vs {e['tok_s']:.1f}; TTFT s "
+            f"{[round(x, 4) for x in c['ttft']]} vs "
+            f"{[round(x, 4) for x in e['ttft']]} on {card}")
+
+    s = eng.stats()
+    st = eng.scheduler.stats
+    log(f"[chunked] stats {json.dumps(s)}; scheduler {st}")
+    assert s["prefill_tokens_reused"] > 0, s
+    assert st.chunks > 1 and st.max_prefill_batch >= 2, st
+    # the chunk forwards are the shapes phase 2 held against the plain version
+    assert st.chunks == sum(B for B, _, _ in MAIN_CHUNKS), (st, MAIN_CHUNKS)
+    assert st.chunk_tokens == sum(B * S for B, S, _ in MAIN_CHUNKS), st
+    n_prefill = launches["flash_prefill_paged"]
+    assert n_prefill > 0 and n_prefill % cfg.n_layers == 0, launches
+    assert launches["paged_write"] == 0, launches     # no eager prefill
+    assert launches["paged_decode"] == cfg.n_layers * s["decode_dispatches"], \
+        (launches, s)
+    assert s["decode_dispatches"] == s["decode_steps"] > 0, s
+    assert eng.block_pool.free_count == free0, (eng.block_pool.free_count,
+                                                free0)
+    eng.block_pool.check_invariants()
+    check_memory(eng, 0, card, "chunked")
+    same = sum(a == b for c, e in zip(reqs, eager["tokens"])
+               for a, b in zip(c.tokens, e))
+    total = sum(len(e) for e in eager["tokens"])
+    rel = kv_rel_err(kv, eager.pop("kv"))
+    log(f"[chunked] shared context K/V, chunked vs eager, relative norm per "
+        f"layer (bf16; ceiling (layer + 1) * 2**-8; phase 6 holds the same "
+        f"path in fp32): {[f'{r:.3e}' for r in rel]}")
+    # a loose ceiling, not a tolerance: each layer rounds its activations
+    # to bf16 (2**-8 relative at most) on either path, so the difference
+    # may grow by about that much per layer; a wrong key or page shows in
+    # fp32 (phase 6), far below rounding noise here
+    assert all(r <= (i + 1) * 2 ** -8 for i, r in enumerate(rel)), rel
+    log(f"[chunked] greedy tokens equal to the eager run's: {same} of "
+        f"{total} (not asserted)")
     return launches
+
+
+# ======================================================================
+# phase 6
+
+
+#: phase 6's depth cut and its bound on the per-layer relative norm of the
+#: chunked minus the eager context K/V in fp32: a dot product of n = 4096
+#: terms rounds by at most n * 2**-24 ~ 2.4e-4 relative, typically
+#: sqrt(n) * 2**-24 ~ 4e-6; a chunk start off by one (each query sees one
+#: key too many or too few) gives ~9e-2 at a narrow width
+FP32_LAYERS = 4
+FP32_KV_REL = 1e-4
+
+
+def phase_fp32_parity(card, n_layers: int):
+    """The chunked and the eager path at full width in fp32, depth cut:
+    identical greedy tokens, and context K/V within FP32_KV_REL per layer.
+    Same traffic, page size, chunk shapes and table widths as phase 5."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import (CHUNKED, build_engine,
+                                              rebuild_engine)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, eng = build_engine(n_layers, dtype="float32")
+    log(f"[fp32] {cfg.name}: {cfg.n_layers} layers (depth cut), d_model "
+        f"{cfg.d_model}, {cfg.dtype}; eager, then chunked over the same "
+        f"weights")
+    e_launches, e_reqs, _, _, e_kv = serve_turns(eng, cfg, card, "fp32 eager")
+    e_tokens = [list(o.tokens) for o in e_reqs]
+    del e_reqs
+    old, eng = eng, rebuild_engine(eng, **CHUNKED)
+    del old
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_launches, c_reqs, _, _, c_kv = serve_turns(eng, cfg, card,
+                                                 "fp32 chunked")
+    assert e_launches["paged_write"] > 0, e_launches
+    assert e_launches["flash_prefill_paged"] == 0, e_launches
+    assert c_launches["paged_write"] == 0, c_launches
+    assert c_launches["flash_prefill_paged"] > 0, c_launches
+    rel = kv_rel_err(c_kv, e_kv)
+    log(f"[fp32] shared context K/V, chunked vs eager, relative norm per "
+        f"layer: {[f'{r:.3e}' for r in rel]} (bound {FP32_KV_REL})")
+    assert max(rel) <= FP32_KV_REL, rel
+    c_tokens = [list(o.tokens) for o in c_reqs]
+    assert c_tokens == e_tokens, (c_tokens, e_tokens)
+    log(f"[fp32] chunked greedy tokens == eager greedy tokens: all "
+        f"{sum(map(len, c_tokens))}")
 
 
 # ======================================================================
@@ -412,18 +811,30 @@ def main() -> int:
     phase_build()
     perf = phase_kernels(card)
     phase_toy_engine()
-    launches = phase_main_path(card, n_layers)
+    eager_launches, eager = phase_main_path(card, n_layers)
+    chunked_launches = phase_chunked(card, eager)
+    del eager
+    phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
 
+    # each kernel with its launches on the path that runs it: the eager
+    # main path (phase 4) for paged_decode and paged_write, the chunked
+    # one (phase 5) for flash_prefill_paged
     sources = {"paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
-                                "src/repro/kernels/paged_decode.py:72"),
+                                "src/repro/kernels/paged_decode.py:72",
+                                eager_launches),
                "paged_write": ("src/repro_torch/csrc/paged_write.cu",
-                               "src/repro/kernels/paged_write.py:43")}
-    kernels = [dict(name=n, route="cuda", source=sources[n][0],
-                    replaces=sources[n][1], launches=launches[n], **perf[n])
-               for n in ("paged_decode", "paged_write")]
+                               "src/repro/kernels/paged_write.py:43",
+                               eager_launches),
+               "flash_prefill_paged": (
+                   "src/repro_torch/csrc/flash_prefill_paged.cu",
+                   "src/repro/kernels/flash_prefill_paged.py:86",
+                   chunked_launches)}
+    kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
+                    launches=runs[n], **perf[n])
+               for n, (src, rep, runs) in sources.items()]
     for k in kernels:
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
+            raise AssertionError(f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

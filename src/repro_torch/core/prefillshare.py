@@ -2,8 +2,9 @@
 cache-compatibility schema.
 
 Port of the serving half of ``repro.core.prefillshare``: one frozen base
-model prefills the shared prompt into the paged pool; task-specific decode
-models read that KV with zero copy. The schema names which base produced a
+model prefills the shared prompt into the paged pool (whole, or in chunks
+that attend straight from the pages); task-specific decode models read that
+KV with zero copy. The schema names which base produced a
 cache, so a decoder trained against another base is refused at handoff.
 Cache-conditioned fine-tuning arrives with the training slice.
 """
@@ -63,6 +64,35 @@ def base_prefill_paged(cfg: ModelConfig, base_params, new_tokens, *,
     pool.scatter_from_dense(cache, block_table, start,
                             len(block_table) - start)
     return out
+
+
+@torch.no_grad()
+def base_prefill_chunk(cfg: ModelConfig, base_params, tokens, *, pool,
+                       block_tables, pos):
+    """One chunked-prefill step against the paged plane (the scheduler's
+    prefill primitive).
+
+    Unlike ``base_prefill_paged`` there is NO dense gather of the prefix:
+    in one forward, each layer scatters the chunk's fresh K/V rows into
+    their pool pages in place and the chunk queries attend to prefix plus
+    chunk straight from the pages (``flash_prefill_paged`` on the card, its
+    plain version on the CPU). Prefix pages may be prefill- or
+    relay-published, as for ``base_prefill_paged``. Batches chunks from
+    several requests: ``tokens`` (B, S) int32, ``pos`` (B,) absolute start
+    positions, ``block_tables`` (B, npages) zero-padded to a common width
+    (the scheduler buckets it to a power of two, the shape key a captured
+    CUDA graph will need). Chunk starts and the cached-prefix boundary may
+    land mid-page. Returns the pool cache it wrote. The reference also
+    counts jit retraces here (``CHUNK_TRACES``); eager PyTorch does not
+    trace, so the port has no counterpart."""
+    dev = pool.device
+    cache = pool.make_decode_cache(
+        torch.as_tensor(block_tables, dtype=torch.int32).to(dev))
+    forward(cfg, base_params,
+            torch.as_tensor(tokens, dtype=torch.int32).to(dev),
+            cache=cache, pos=torch.as_tensor(pos, dtype=torch.int32).to(dev),
+            logits="hidden")
+    return cache
 
 
 # ======================================================================

@@ -244,7 +244,10 @@ void launch(int D, dim3 grid, cudaStream_t st, const void* q,
   const int* bb = (const int*)bt;
   const int* ll = (const int*)ln;
   T* oo = (T*)out;
-  if (D == 32)
+  if (D == 16)
+    paged_decode_kernel<T, 16><<<grid, NT, 0, st>>>(
+        qq, kk, vv, bb, ll, oo, Hkv, G, page, npages, scale, softcap);
+  else if (D == 32)
     paged_decode_kernel<T, 32><<<grid, NT, 0, st>>>(
         qq, kk, vv, bb, ll, oo, Hkv, G, page, npages, scale, softcap);
   else if (D == 64)
@@ -267,7 +270,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int npages, float scale, float softcap,
                                    int is_bf16, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || page <= 0 ||
-      (D != 32 && D != 64 && D != 128))
+      (D != 16 && D != 32 && D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   const int G = Hq / Hkv;

@@ -22,3 +22,9 @@ def resolve_device(device=None) -> torch.device:
 def torch_dtype(name: str) -> torch.dtype:
     """``ModelConfig.dtype`` string -> torch dtype."""
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card, so host clocks around device work measure it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -19,7 +19,7 @@ _SIGNATURE = {"paged_decode_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
               + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                  ctypes.c_void_p]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8
 
 

@@ -18,6 +18,17 @@ NEG = -1e30
 #: reference kernel tests' 2e-2 stays for their small cases.
 MAIN_SHAPE_BF16_TOL = {"atol": 1e-3, "rtol": 1e-2}
 
+#: How closely a bf16 ``flash_prefill_paged`` kernel must match
+#: ``ref_paged_prefill`` at the main path's chunk shapes (Hq 32, Hkv 8,
+#: D 128, page 16; 200-token chunks at starts 0-800 and 4 x 40-token chunks
+#: at start 992). Both sides accumulate in fp32 and round once to bf16, so
+#: one bf16 rounding step (at most 2**-7 of the value) passes; one wrong
+#: page, one key too many past the causal boundary, or a ``start`` one too
+#: small moves some output by more and fails
+#: (``tests/test_torch_kernels.py``). The reference kernel tests' 2e-2
+#: stays for their small cases.
+MAIN_SHAPE_PREFILL_BF16_TOL = {"atol": 1e-3, "rtol": 1e-2}
+
 
 def ref_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
                      softcap: float = 0.0, scale: float | None = None):
@@ -45,6 +56,41 @@ def ref_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgt,bthd->bhgd", p, v.float())
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def ref_paged_prefill(q, k_pages, v_pages, block_tables, start, *,
+                      softcap: float = 0.0, scale: float | None = None):
+    """Chunk-prefill attention over pages: gather the block table into
+    contiguous KV, then a materialized causal softmax at absolute positions
+    (q[b, i] sits at ``start[b] + i``; key t is visible iff t <= that).
+
+    q: (B, S, Hq, D); k/v_pages: (P, page, Hkv, D); block_tables: (B,
+    npages) int32; start: (B,) int32. Returns (B, S, Hq, D) in q's dtype.
+    The op order is the reference's (scale, reshape, score einsum, softcap,
+    mask, softmax, value einsum), which is ``_direct``'s, so chunked and
+    dense prefill give the same greedy tokens."""
+    B, S, Hq, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    npages = block_tables.shape[1]
+    g = Hq // Hkv
+    T = npages * page
+    scale = D ** -0.5 if scale is None else scale
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, T, Hkv, D)
+    v = v_pages[bt].reshape(B, T, Hkv, D)
+
+    qg = (q.float() * scale).reshape(B, S, Hkv, g, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = (start.to(q.device)[:, None]
+            + torch.arange(S, dtype=torch.int32, device=q.device)[None])
+    kpos = torch.arange(T, dtype=torch.int32, device=q.device)
+    mask = kpos[None, None, None, None, :] <= qpos[:, None, None, :, None]
+    s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, S, Hq, D).to(q.dtype)
 
 
 def ref_paged_write(new_k, new_v, k_pages, v_pages, block_tables, n_valid):

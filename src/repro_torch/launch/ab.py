@@ -19,7 +19,8 @@ import sys
 from pathlib import Path
 
 KEEP = ("[build]", "[paged_decode] main shape", "[paged_write] Llama fold",
-        "[main] turn", "[main] launches", '{"kernels"', "Traceback",
+        "[flash_prefill_paged] main", "[main] turn", "[main] launches",
+        "[chunked] turn", "[chunked] launches", '{"kernels"', "Traceback",
         "Error")
 
 

@@ -1,20 +1,25 @@
 """Where the main path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [n_layers]
+    PYTHONPATH=src python -m repro_torch.launch.profile [--chunked] [n_layers]
 
 Builds the engine ``chip_smoke.py`` phase 4 serves (``launch/main_path.py``:
 Llama-3.1-8B, bf16, seeded random weights, a base + 2 full-weight decode
-models, 2048 pages of 16 tokens), opens a shared 1000-token context and
-runs one untraced warm-up turn.
+models, 2048 pages of 16 tokens; with ``--chunked`` the phase 5 engine,
+``main_path.CHUNKED``), opens a shared 1000-token context and runs one
+untraced warm-up turn (the context's prefill is timed warm by
+``chip_smoke.py``; here it also pays the kernels' first-use builds).
 Then it measures, untraced:
-  - eager prefill: wall time of 4 ``generate`` calls (32-token tails over
-    the cached context), synchronized;
+  - prefill of 4 32-token tails over the cached context: eager, the wall
+    time of the 4 ``generate`` calls (per request); chunked, where
+    ``generate`` only queues, the wall time of the first step after them
+    (one B=4 chunk forward, the handoffs and the first decode step);
   - fused decode: 8 steps of the resulting batch of 4, each bracketed by
     CUDA events;
-and finally traces, with ``torch.profiler``, one more prefill and 8 decode
-steps, and prints the device time by kernel (top 25), the device time per
-kernel class (matrix products, paged_decode, paged_write, the rest) and the
-device's busy share of the traced window's wall time. It needs a card.
+and finally traces, with ``torch.profiler``, one more request's prefill and
+8 steps, and prints the device time by kernel (top 25), the device time per
+kernel class (matrix products, paged_decode, paged_write,
+flash_prefill_paged, the rest) and the device's busy share of the traced
+window's wall time. It needs a card.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ def _kernel_class(name: str) -> str:
         return "paged_decode"
     if "paged_write" in n:
         return "paged_write"
+    if "flash_prefill_paged" in n:
+        return "flash_prefill_paged"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma",
                             "nvjet")):
         return "matmul"
@@ -43,14 +50,18 @@ def main(argv) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.main_path import (PROMPT_TOKENS, TAIL_TOKENS,
-                                              build_engine, tokens)
+    from repro_torch.launch.main_path import (CHUNKED, PROMPT_TOKENS,
+                                              TAIL_TOKENS, build_engine,
+                                              tokens)
     from repro_torch.serving import SamplingParams
 
     if not torch.cuda.is_available():
         print("profile: needs a CUDA card", file=sys.stderr)
         return 1
-    cfg, eng = build_engine(int(argv[0]) if argv else None)
+    chunked = "--chunked" in argv
+    argv = [a for a in argv if a != "--chunked"]
+    cfg, eng = build_engine(int(argv[0]) if argv else None,
+                            **(CHUNKED if chunked else {}))
     rng = np.random.default_rng(0)
     prompt = tokens(cfg, rng, PROMPT_TOKENS)
 
@@ -67,8 +78,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     for m in models:
         ctx.generate(m, tail(), SamplingParams(max_tokens=32))
+    if chunked:
+        eng.step()               # the B=4 chunk forward, handoffs, 1 decode
     torch.cuda.synchronize()
-    prefill_s = (time.perf_counter() - t0) / len(models)
+    prefill_s = (time.perf_counter() - t0) / (1 if chunked else len(models))
     step_ms = []
     for _ in range(8):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -103,8 +116,8 @@ def main(argv) -> int:
                                     row_limit=25))
     card = torch.cuda.get_device_name(0)
     print(json.dumps({
-        "card": card, "n_layers": cfg.n_layers,
-        "prefill_s_per_request": prefill_s,
+        "card": card, "n_layers": cfg.n_layers, "chunked": chunked,
+        ("first_step_s" if chunked else "prefill_s_per_request"): prefill_s,
         "decode_step_ms": step_ms,
         "traced_window_s": window_s,
         "device_busy_ms": busy_us / 1e3,

@@ -10,12 +10,15 @@ and the dense path give identical greedy tokens.
 
 The paged plane writes each step's K/V rows straight into the shared pool
 with an in-place ``index_put_`` (the reference's ``kp.at[pg, slot].set``)
-and attends with the ``paged_decode`` kernel (its plain version on the CPU).
+and attends with the ``paged_decode`` kernel (one token per row) or the
+``flash_prefill_paged`` kernel (a prefill chunk); on the CPU, their plain
+versions.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.rope import apply_rope
@@ -110,19 +113,25 @@ PAGED_CACHE_KEYS = ("k_pages", "v_pages", "block_tables")
 
 
 def paged_decode_rows(q, k, v, k_pages, v_pages, block_tables, pos, *,
-                      softcap=None):
+                      softcap=None, rows=None):
     """One decode token per row: write each row's K/V into its page slot of
     the shared pool IN PLACE, then attend over the row's block table.
 
     q: (N, Hq, D); k/v: (N, Hkv, D) post-rope; k/v_pages: (P, page, Hkv, D);
     block_tables: (N, npages) int32; pos: (N,) int32 position of the token.
-    Written pages are private per sequence (fresh decode pages, or the
-    handoff's copy-on-write clone); rows padded into a batch point at
-    sentinel page 0, which is never read as live KV, so the scatter is
-    exact whatever order duplicate sentinel writes land in."""
+    rows: None (every row is real) or an int64 device tensor of the real
+    rows' indices: only those rows write the pool, so rows padded into a
+    batch write nothing (sentinel page 0 stays zero); they still attend,
+    over sentinel page 0, and nothing reads their outputs. Written pages
+    are private per sequence (fresh decode pages, or the handoff's
+    copy-on-write clone), so the scatter never collides."""
     page = k_pages.shape[1]
-    pos_l = pos.long()
-    pg = block_tables.gather(1, (pos_l // page)[:, None])[:, 0].long()
+    bt, pos_w = block_tables, pos
+    if rows is not None:
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
+        bt, pos_w = bt.index_select(0, rows), pos.index_select(0, rows)
+    pos_l = pos_w.long()
+    pg = bt.gather(1, (pos_l // page)[:, None])[:, 0].long()
     slot = pos_l % page
     k_pages.index_put_((pg, slot), k)
     v_pages.index_put_((pg, slot), v)
@@ -131,14 +140,30 @@ def paged_decode_rows(q, k, v, k_pages, v_pages, block_tables, pos, *,
 
 
 def _paged_apply(p, q, k, v, cache, pos, cfg):
-    """S == 1: the decode step over the paged pool. q/k/v: post-rope
-    (B, 1, H, D). The pool pages in ``cache`` are updated in place."""
+    """Scatter the incoming tokens' K/V into their (private) pool pages IN
+    PLACE, then attend over the block table. q/k/v: post-rope (B, S, H, D).
+
+    S == 1 is the decode step (``paged_decode``); S > 1 is a prefill chunk
+    (``flash_prefill_paged``). Both read the prefix straight from the
+    pages, with no dense gather. The write precedes the attention, so every
+    query finds its own key."""
     B, S = q.shape[0], q.shape[1]
-    if S != 1:
-        raise NotImplementedError("chunked prefill: port slice 2")
     kp, vp, bt = (cache[key] for key in PAGED_CACHE_KEYS)
-    o = paged_decode_rows(q[:, 0], k[:, 0], v[:, 0], kp, vp, bt, pos,
-                          softcap=cfg.attn_softcap)
+    if S == 1:
+        o = paged_decode_rows(q[:, 0], k[:, 0], v[:, 0], kp, vp, bt, pos,
+                              softcap=cfg.attn_softcap)
+    else:
+        page = kp.shape[1]
+        positions = pos.long()[:, None] + torch.arange(S, device=pos.device)
+        # written pages are private per sequence (fresh chunk pages, or a
+        # partially filled page this request owns), so (pg, slot) never
+        # collide
+        pg = bt.gather(1, positions // page).long()              # (B, S)
+        kp.index_put_((pg, positions % page), k)
+        vp.index_put_((pg, positions % page), v)
+        # the reference's paged_prefill_attention: q rows at start + i
+        o = flash_prefill_paged(q.contiguous(), kp, vp, bt, pos,
+                                softcap=cfg.attn_softcap or 0.0)
     return o.reshape(B, S, -1) @ p["wo"], cache
 
 

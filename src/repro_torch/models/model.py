@@ -235,16 +235,18 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
 
 
 def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
-                   v_layers, block_tables):
+                   v_layers, block_tables, rows=None):
     """The fused decode plane's step: ONE forward for M stacked decoders.
 
     stacked: a param tree whose every leaf has a leading model axis M.
     tokens, pos: (M, Bmax) int (row (m, b) feeds decoder m; padding rows
     carry pos 0 and a block table of sentinel page 0). k/v_layers: each
     layer's (P, page, Hkv, D) pool pages in execution order, shared by all
-    models. block_tables: (M * Bmax, npages) int32. Projections and MLPs are
+    models. block_tables: (M * Bmax, npages) int32. rows: None when every
+    row is real, else an int64 device tensor of the real rows' flat indices
+    m * Bmax + b; only those rows write the pool. Projections and MLPs are
     batched matrix products over the model axis; attention is one
-    ``paged_decode`` launch per layer over all M * Bmax rows, each row
+    ``paged_decode`` launch per layer over all M * Bmax rows, each real row
     writing its K/V straight into the shared pool. Returns (M, Bmax, V)
     fp32 logits."""
     _check_supported(cfg)
@@ -261,7 +263,7 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
         o = attn_mod.paged_decode_rows(
             q.reshape(M * Bmax, hq, hd), k.reshape(M * Bmax, -1, hd),
             v.reshape(M * Bmax, -1, hd), kp, vp, block_tables, flat_pos,
-            softcap=cfg.attn_softcap)
+            softcap=cfg.attn_softcap, rows=rows)
         x = x + o.reshape(M, Bmax, hq * hd) @ ap["wo"]
         if "norm2" in lp:
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))

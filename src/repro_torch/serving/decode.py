@@ -15,9 +15,10 @@ The port does not copy it. Per step (``StackedDecoders.step``):
   - projections and the MLP are batched matrix products over the model
     axis, and attention is ONE ``paged_decode`` launch per layer over the
     flattened M * Bmax batch (``models.model.decode_stacked``);
-  - every row writes its K/V straight into the shared pool. That is exact:
-    written pages are private per sequence, and padding rows write only to
-    sentinel page 0, which is never read as live KV.
+  - every real row writes its K/V straight into the shared pool. That is
+    exact: written pages are private per sequence. Padding rows write
+    nothing: the step passes the real rows' flat indices down, so sentinel
+    page 0 stays zero, as in the reference.
 Greedy: the next token is the argmax of the fp32 logits (exactly the
 reference's ``temperature=0`` path).
 """
@@ -84,12 +85,16 @@ class StackedDecoders:
             pos[m, b] = s.pos
             bts[m * bmax + b, :len(s.block_table)] = s.block_table
         dev = self.kvpool.device
+        rows = None
+        if len(seqs) < M * bmax:           # the grid has padding rows
+            rows = torch.tensor([m * bmax + b for m, b in coords],
+                                dtype=torch.int64).to(dev)
         k_layers, v_layers = self.kvpool.layers()
         logits = decode_stacked(self.cfg, self.stacked,
                                 torch.from_numpy(toks).to(dev),
                                 torch.from_numpy(pos).to(dev),
                                 k_layers, v_layers,
-                                torch.from_numpy(bts).to(dev))
+                                torch.from_numpy(bts).to(dev), rows=rows)
         nxt = logits.argmax(-1).to(torch.int32).cpu()        # (M, Bmax)
         self.dispatches += 1
         seq_m = torch.tensor([m for m, _ in coords])

@@ -4,12 +4,18 @@ Port of ``repro.serving.engine`` for the paper's main path: one frozen base
 model prefills a shared prompt into a paged KV pool, and several
 task-specific decode models read that KV with no copy.
 
-  - prefill (eager): the router picks a prefill worker; its CacheManager
-    matches the longest cached prefix in the engine-global radix tree and
-    allocates pages for the rest; ``base_prefill_paged`` gathers the prefix
-    out of the pool, extends it with the base model and writes the fresh
-    rows back with the ``paged_write`` kernel. The allocation is held for
-    the session (released by ``end_session``).
+  - prefill, eager (default): the router picks a prefill worker; its
+    CacheManager matches the longest cached prefix in the engine-global
+    radix tree and allocates pages for the rest; ``base_prefill_paged``
+    gathers the prefix out of the pool, extends it with the base model and
+    writes the fresh rows back with the ``paged_write`` kernel. The
+    allocation is held for the session (released by ``end_session``).
+  - prefill, chunked (``chunked=True``): requests queue in the token-budget
+    scheduler (``serving.scheduler``), which admits them in policy order,
+    grows their pages chunk by chunk and runs equal-length chunks as one
+    ``base_prefill_chunk`` forward whose attention reads the prefix straight
+    from the pages (the ``flash_prefill_paged`` kernel), interleaved with
+    decode steps.
   - handoff: ZERO-COPY. The decode sequence takes a block-table reference
     and a refcount on every page; a partially filled tail page is cloned
     first (copy-on-write) so concurrent decoders append privately.
@@ -38,7 +44,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.prefillshare import base_prefill_paged, cache_schema
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kvcache.blocks import BlockPool, PoolExhausted
 from repro_torch.kvcache.handoff import HandoffChannel
 from repro_torch.kvcache.manager import CacheManager, CacheStats
@@ -53,13 +59,8 @@ from repro_torch.serving.backpressure import ThroughputEWMA
 from repro_torch.serving.decode import FusedDecodePlane, next_pow2
 from repro_torch.serving.registry import ModelRegistry, as_spec
 from repro_torch.serving.router import PrefillRouter
-from repro_torch.serving.scheduler import ChunkedScheduler
-
-
-def _sync(device: torch.device) -> None:
-    """Wait for the card, so host clocks around device work measure it."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from repro_torch.serving.scheduler import (ChunkedScheduler, Request,
+                                           SchedulerConfig)
 
 
 @dataclass
@@ -169,6 +170,7 @@ class PrefillWorker:
         self.backlog_s = 0.0      # router load signal (estimated work issued)
         self.last_decay_t = time.monotonic()   # backlog decay clock
         self.ewma = ThroughputEWMA()       # measured prefill s/token
+        self.pending_chunk_tokens = 0      # admitted-but-uncomputed (chunked)
 
     def prefill(self, sid: int, tokens) -> tuple[list, int]:
         """Ensure pool pages cover ``tokens``; compute only the uncached
@@ -194,7 +196,7 @@ class PrefillWorker:
                 base_prefill_paged(self.cfg, self.base_params, new,
                                    pool=self.kvpool, block_table=bt,
                                    n_cached=n_cached)
-                _sync(dev)                 # the router's EWMA needs real time
+                synchronize(dev)           # the router's EWMA needs real time
                 self.ewma.observe(n - n_cached, time.perf_counter() - t0)
         except BaseException:
             # nothing was committed: tail pages hold partial KV and are
@@ -262,20 +264,18 @@ def _param_paths(tree, prefix=()):
 
 class LocalDisaggEngine:
     """Prefill worker pool + decode models over one shared paged KV plane
-    (eager prefill, zero-copy handoff, fused decode)."""
+    (eager or chunked prefill, zero-copy handoff, fused decode)."""
 
     def __init__(self, cfg: ModelConfig, base_params, decoders: dict | None = None,
                  *, device=None, capacity: int = 512, paged: bool | None = None,
                  num_pages: int = 1024, page_size: int = 16,
                  n_prefill_workers: int = 1, router_policy: str = "pinned",
-                 chunked: bool = False, fused: bool | None = None,
-                 prefix_cache: bool = True, relay: bool = True,
-                 autoscale=None, sanitize: bool = False,
+                 chunked: bool = False, token_budget: int = 256,
+                 chunk_size: int = 64, sched_policy: str = "fcfs",
+                 fused: bool | None = None, prefix_cache: bool = True,
+                 relay: bool = True, autoscale=None, sanitize: bool = False,
                  preempt: bool = False):
         self.device = resolve_device(device)
-        if chunked:
-            raise NotImplementedError("chunked prefill (chunked=True): "
-                                      "port slice 2")
         if autoscale is not None:
             raise NotImplementedError("autoscale: port slice 4 "
                                       "(serving features)")
@@ -295,6 +295,7 @@ class LocalDisaggEngine:
         self.cfg = cfg
         self.base_params = base_params
         self.page_size = page_size
+        self.chunked = chunked
         self.stats = EngineStats(_engine=self)
         self.schema = cache_schema(cfg, base_params, capacity)
         self.handoff = HandoffChannel(cfg)
@@ -318,7 +319,10 @@ class LocalDisaggEngine:
                           self.stats, index=self.prefix_index)
             for _ in range(n_prefill_workers)]
         self.fused = True if fused is None else fused
-        self.scheduler = ChunkedScheduler(self)
+        self.scheduler = ChunkedScheduler(
+            self, SchedulerConfig(token_budget=token_budget,
+                                  chunk_size=chunk_size,
+                                  policy=sched_policy))
         self.decoders: dict[str, DecodeWorker] = {}
         self.models = ModelRegistry(self)
         self.decode_plane = None
@@ -332,6 +336,7 @@ class LocalDisaggEngine:
         self._ephemeral_sids: dict[int, int] = {}      # rid -> auto session
         self._done: set[int] = set()                   # finished or aborted
         self._next_rid = 0
+        self._next_seq = 0                             # arrival order
         self._next_ctx_sid = 1 << 40
 
     #: half-life of the issued-work router signal, in seconds of wall time
@@ -339,17 +344,18 @@ class LocalDisaggEngine:
 
     # ------------------------------------------------------------------
     def _pick_worker(self, sid: int, tokens=None, now: float | None = None):
-        """Route by recency-weighted issued work priced at each worker's
+        """Route by recency-weighted issued work plus (chunked mode) the
+        admitted-but-uncomputed chunk backlog, both priced at each worker's
         measured s/token, plus (``prefix_aware``) the request's cold tokens
-        and the measured handoff estimate. Eager prefill is synchronous, so
-        no worker has queued chunk work."""
+        and the measured handoff estimate."""
         now = time.monotonic() if now is None else now
         for w in self.prefill_workers:
             dt = now - w.last_decay_t
             if dt > 0:
                 w.backlog_s *= 0.5 ** (dt / self.BACKLOG_HALFLIFE_S)
                 w.last_decay_t = now
-        backlogs = [w.backlog_s for w in self.prefill_workers]
+        backlogs = [w.backlog_s + w.ewma.backlog_seconds(w.pending_chunk_tokens)
+                    for w in self.prefill_workers]
         cold_s = None
         if tokens is not None:
             n = len(tokens)
@@ -419,11 +425,15 @@ class LocalDisaggEngine:
             self.stats.plane_rebuilds += 1
 
     def _has_inflight(self, model_id: str) -> bool:
-        return any(s.model_id == model_id for s in self.scheduler.active)
+        """Any live work addressed to ``model_id`` (waiting, prefilling or
+        decoding)? Gates drain completion and plane-lane retirement."""
+        return bool(self._inflight_rids(model_id))
 
     def _inflight_rids(self, model_id: str) -> list[int]:
-        return [s.rid for s in self.scheduler.active
-                if s.model_id == model_id]
+        sched = self.scheduler
+        return ([r.rid for r in sched.waiting if r.model_id == model_id]
+                + [r.rid for r in sched.prefilling if r.model_id == model_id]
+                + [s.rid for s in sched.active if s.model_id == model_id])
 
     # ------------------------------------------------------------------
     def _handoff_seq(self, block_table, n: int, sid: int, model_id: str,
@@ -463,12 +473,23 @@ class LocalDisaggEngine:
                          tokens=list(tokens) if tokens is not None else [],
                          first0=first_token)
 
-    def _submit(self, rid: int, sid: int, tokens: list, model_id: str,
-                params: SamplingParams, first_token: int) -> None:
-        """Eager mode: whole-prompt prefill and handoff, synchronously and
-        in call order (so a request's priority has no effect).
-        ``max_tokens == 0`` is prefill-only: the prompt becomes resident
-        (and published for prefix reuse), no decode."""
+    def _submit(self, rid: int, sid: int, tokens: list, model_id: str | None,
+                params: SamplingParams, first_token: int,
+                priority: int = 0) -> None:
+        """Queue one request. Chunked mode: it enters the scheduler's
+        admission queue and its prompt is prefilled in token-budget chunks
+        interleaved with decode, admitted in ``priority`` order under the
+        priority policy. Eager mode: whole-prompt prefill and handoff happen
+        here, synchronously and in call order, so ``priority`` has no
+        effect. ``max_tokens == 0`` is prefill-only: the prompt becomes
+        resident (and published for prefix reuse), no decode."""
+        if self.chunked:
+            self.scheduler.add(Request(
+                rid=rid, sid=sid, model_id=model_id, tokens=tokens,
+                gen_tokens=params.max_tokens, first_token=first_token,
+                priority=priority, seq=self._next_seq, params=params))
+            self._next_seq += 1
+            return
         worker = self._pick_worker(sid, tokens)
         bt, n = worker.prefill(sid, tokens)
         if params.max_tokens == 0:
@@ -484,17 +505,22 @@ class LocalDisaggEngine:
                  params: SamplingParams | None = None, *,
                  session: int | None = None, priority: int = 0,
                  first_token: int = 2, stream_callback=None) -> RequestOutput:
-        """Prefill ``tokens`` (eagerly, now), hand the request to decode
-        model ``model_id`` and return its streaming ``RequestOutput``.
+        """Queue one generation for decode model ``model_id`` and return its
+        streaming ``RequestOutput``. Eager mode prefills ``tokens`` now;
+        chunked mode queues them for the scheduler.
 
         ``session=None`` runs the request in an engine-owned one-shot
         session, released when the request finishes or is aborted. Pass a
         ``SharedContext``'s session (via ``ctx.generate``) to attach to a
         shared prefix. Iterate the handle / call ``result()`` to drive the
-        engine, or drive it with ``run()``/``step()``. ``priority`` is
-        accepted for the API's sake; eager mode serves in call order."""
+        engine, or drive it with ``run()``/``step()``. ``priority`` (or
+        ``params.priority``) orders admission under
+        ``sched_policy="priority"`` in chunked mode; eager mode serves in
+        call order."""
         self.models.check_serving(model_id)
         params = SamplingParams() if params is None else params
+        if not priority:
+            priority = params.priority
         if params.temperature > 0:
             raise NotImplementedError("sampling (temperature > 0): port "
                                       "slice 3")
@@ -510,7 +536,7 @@ class LocalDisaggEngine:
             self._ephemeral_sids[rid] = sid
         try:
             self._submit(rid, sid, [int(t) for t in np.asarray(tokens)],
-                         model_id, params, first_token)
+                         model_id, params, first_token, priority)
         except Exception:
             # prefill can raise (PoolExhausted) after the handle was
             # registered: unwind so retries leak no orphan handles
@@ -527,16 +553,37 @@ class LocalDisaggEngine:
         return SharedContext(self, prefix_tokens, prefill=prefill)
 
     def abort(self, request) -> bool:
-        """Cancel a request. Accepts a ``RequestOutput`` or a request id.
-        Returns True if the request was still live. In eager mode a live
-        request is decoding: its handoff refs and private pages are
-        released, so the pool's free-page count returns exactly to its
-        pre-request baseline."""
+        """Cancel a request at any stage. Accepts a ``RequestOutput`` or a
+        request id. Returns True if the request was still live (False:
+        already finished, already aborted, unknown).
+
+        Queued: removed before any pages are touched. Prefilling (including
+        held under pool backpressure): its chunk-granular allocation is
+        reclaimed; cached prefix pages return to the LRU cache, partially
+        written tail pages are dropped. Decoding: its handoff refs and
+        private pages are released. In every case the pool's free-page
+        count returns exactly to its pre-request baseline."""
         rid = request.request_id if isinstance(request, RequestOutput) \
             else int(request)
         if rid in self._done:
             return False
         sched = self.scheduler
+        for r in sched.waiting:                    # queued: nothing held yet
+            if r.rid == rid:
+                sched.waiting.remove(r)
+                self._on_request_done(rid, FINISH_ABORT)
+                return True
+        for r in sched.prefilling:                 # mid-chunk / held
+            if r.rid != rid:
+                continue
+            sched.prefilling.remove(r)
+            if r.sibling_bt is not None:
+                self.block_pool.unref(r.sibling_bt)   # drop the sibling pin
+            elif not r.committed:   # committed: the session owns the pages
+                r.worker.mgr.abandon(r.alloc)
+                r.worker.pending_chunk_tokens -= r.n - r.done
+            self._on_request_done(rid, FINISH_ABORT)
+            return True
         for s in sched.active:
             if s.rid != rid:
                 continue
@@ -555,9 +602,18 @@ class LocalDisaggEngine:
         return sid
 
     def _prefill_context(self, sid: int, tokens) -> None:
-        """Make ``tokens`` resident for session ``sid`` (SharedContext)."""
+        """Make ``tokens`` resident for session ``sid`` (SharedContext
+        warm-up). Eager mode prefills synchronously; chunked mode drives the
+        scheduler until the prefill-only request completes."""
         tokens = [int(t) for t in tokens]
-        self._pick_worker(sid, tokens).prefill(sid, tokens)
+        if not self.chunked:
+            self._pick_worker(sid, tokens).prefill(sid, tokens)
+            return
+        rid = self._next_rid
+        self._next_rid += 1
+        self._submit(rid, sid, tokens, None, SamplingParams(max_tokens=0), 2)
+        while rid not in self._done:
+            self.scheduler.step()
 
     def _on_request_done(self, rid: int, reason: str) -> None:
         self._done.add(rid)

@@ -1,4 +1,7 @@
-"""Engine step loop (``scheduler.py``); eager mode in this slice."""
-from repro_torch.serving.scheduler.scheduler import ChunkedScheduler
+"""Engine step loop (``scheduler.py``) and admission ordering
+(``queue.py``)."""
+from repro_torch.serving.scheduler.scheduler import (ChunkedScheduler,
+                                                     Request, SchedStats,
+                                                     SchedulerConfig)
 
-__all__ = ["ChunkedScheduler"]
+__all__ = ["ChunkedScheduler", "Request", "SchedStats", "SchedulerConfig"]

@@ -9,7 +9,9 @@ plain versions, and the greedy tokens must be identical:
     (fused plane against fused=False, ragged mixed-model batches) and the
     one-dispatch-per-step contract;
   - relay against relay=False (tokens identical; pages are not compared,
-    see ROADMAP.md Queue 3).
+    see ROADMAP.md Queue 3);
+  - tests/test_fused_decode.py::test_sentinel_page_zero_never_holds_live_kv
+    (a ragged fused batch writes nothing into pool row 0).
 """
 import jax
 import numpy as np
@@ -196,6 +198,22 @@ def test_relay_chain_matches_relay_off_and_reference(relay_ref, fused):
     assert runs[True] == runs[False] == want
 
 
+def test_relay_chain_chunked_matches_reference(relay_ref):
+    """The relay chain under chunked prefill: the second prompt's prefix is
+    served from relay-published (decode-written) pages and its chunks
+    attend to them straight from the pool, with the reference's tokens."""
+    (tcfg, base), want = relay_ref
+    eng = _port(tcfg, base, chunked=True, chunk_size=5, token_budget=16)
+    eng.models.register("a", base)
+    eng.models.register("b", base)
+    assert _chain(eng, SamplingParams) == want
+    s = eng.stats()
+    assert s["relay_publishes"] >= 1 and s["relay_hit_tokens"] > 0
+    assert eng.scheduler.stats.chunks > 1
+    assert eng.block_pool.active_count == 0
+    eng.block_pool.check_invariants()
+
+
 # ======================================================================
 # page accounting and device selection
 
@@ -216,6 +234,49 @@ def test_pages_back_to_baseline_after_end_session_and_abort(two_turn):
     assert eng.block_pool.active_count == 0
     assert eng.block_pool.free_count == free0
     eng.block_pool.check_invariants()
+
+
+def test_sentinel_page_zero_never_holds_live_kv(two_turn):
+    """tests/test_fused_decode.py's sentinel regression: page id 0 is never
+    allocated, and pool row 0 receives no write, on any layer. A ragged mix
+    (two m0 sequences, one m1) gives the fused (M=2, Bmax=2) grid a padding
+    row, whose block table is all sentinel; it must write nothing, and the
+    batch must decode exactly like isolated runs."""
+    from repro_torch.kvcache.blocks import BlockPool
+    pool = BlockPool(4, PAGE)
+    got = pool.alloc(4)                              # drain the whole pool
+    assert 0 not in got and min(got) == 1
+    with pytest.raises(ValueError, match="sentinel"):
+        pool.ref([0])
+    with pytest.raises(ValueError, match="sentinel"):
+        pool.drop([0])
+    pool.check_invariants()
+
+    (tcfg, base, decs), _ = two_turn
+    rng = np.random.default_rng(3)
+    jobs = [(list(rng.integers(4, 60, size=n)), m)
+            for n, m in ((37, "m0"), (9, "m0"), (20, "m1"))]
+    eng = _port(tcfg, base, decs)
+    outs = [eng.generate(m, ctx, SamplingParams(max_tokens=5), session=sid)
+            for sid, (ctx, m) in enumerate(jobs)]
+    steps = []
+    plane = eng.decode_plane.groups[0]
+    orig = plane.step
+    plane.step = lambda seqs: steps.append(len(seqs)) or orig(seqs)
+    eng.run()
+    assert steps and all(n == 3 for n in steps)      # one padding row each
+    used = {p for w in eng.prefill_workers for sc in w.sessions.values()
+            for p in sc.block_table}
+    assert 0 not in used
+    kv = eng.kvpool
+    for a in (*kv.k_groups.values(), *kv.v_groups.values()):
+        assert not a[:, 0].any(), "a group layer wrote sentinel row 0"
+    for a in (*kv.k_tail, *kv.v_tail):
+        assert not a[0].any(), "a tail layer wrote sentinel row 0"
+    alone = [_port(tcfg, base, decs).generate(
+        m, ctx, SamplingParams(max_tokens=5)).result().tolist()
+        for ctx, m in jobs]
+    assert [o.tokens for o in outs] == alone
 
 
 def test_engine_without_device_raises_when_no_card(two_turn, monkeypatch):

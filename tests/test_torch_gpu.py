@@ -5,17 +5,22 @@ tests/test_torch_gpu.py`` on a machine with an H100 (the kernels build with
 nvcc for sm_90a at first use). Elsewhere every test skips, decided inside a
 fixture so that every pytest worker collects the same tests. Tolerances are
 the reference kernel tests' (2e-5 fp32, 2e-2 bf16), except bf16 at the
-Llama-3.1-8B decode shape, which is held to ``MAIN_SHAPE_BF16_TOL``;
-paged_write is exact.
+Llama-3.1-8B decode and chunk shapes, which are held to
+``MAIN_SHAPE_BF16_TOL`` and ``MAIN_SHAPE_PREFILL_BF16_TOL``; paged_write is
+exact. The toy engines run at the reference's own head_dim 16 and at 32,
+eager and chunked.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.kernels.paged_write import paged_write
-from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL, ref_paged_decode,
+from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
+                                     MAIN_SHAPE_PREFILL_BF16_TOL,
+                                     ref_paged_decode, ref_paged_prefill,
                                      ref_paged_write)
 from repro_torch.models import init_params
 from repro_torch.params import tree_map
@@ -31,7 +36,28 @@ PAGED_CASES = [
     (2, 8, 1, 64, 16, 16, 64),
     (4, 2, 2, 32, 8, 4, 20),
     (5, 16, 2, 128, 128, 3, 9),        # pages longer than a 128-token tile
+    (4, 2, 1, 16, 8, 4, 20),           # head_dim 16 (the toy configs)
     LLAMA_DECODE,                      # Llama-3.1-8B decode shape
+]
+# B, Hq, Hkv, D, page, npages, pool, S, start (None: random); the chunked
+# main path's chunk forwards, each table as wide as the scheduler buckets it
+# (next power of two of the pages in use): the shared context's 200-token
+# chunks, then the four tails of turn 1 (40 tokens) and turn 2 (72)
+LLAMA_CHUNKS = [(1, 32, 8, 128, 16, 16, 2049, 200, 0),
+                (1, 32, 8, 128, 16, 32, 2049, 200, 200),
+                (1, 32, 8, 128, 16, 64, 2049, 200, 800),
+                (4, 32, 8, 128, 16, 128, 2049, 40, 992),
+                (4, 32, 8, 128, 16, 128, 2049, 72, 992)]
+PREFILL_CASES = [
+    (2, 4, 2, 64, 8, 4, 16, 5, None),      # tests/test_kernels.py cases
+    (1, 8, 1, 32, 16, 3, 8, 16, None),
+    (3, 2, 2, 64, 8, 6, 32, 7, None),
+    (1, 4, 2, 128, 16, 2, 8, 1, None),
+    (2, 4, 2, 64, 8, 4, 12, 6, None),      # the reference's softcap case
+    (3, 2, 1, 16, 8, 6, 24, 11, None),     # head_dim 16 (the toy configs)
+    (2, 16, 2, 128, 16, 16, 64, 37, None),  # group 8, many row/key tiles
+    (2, 4, 1, 32, 16, 16, 64, 130, 0),     # start 0, S > one key tile
+    *LLAMA_CHUNKS,                          # the chunked main path's shapes
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -95,22 +121,105 @@ def test_paged_write_kernel_bitwise(card, case, dtype):
     assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
 
 
-def test_toy_engine_on_card_matches_cpu(card):
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=str)
+def test_flash_prefill_paged_kernel_matches_plain(card, case, dtype, softcap):
+    B, Hq, Hkv, D, page, npages, P, S, st0 = case
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((B, S, Hq, D), generator=g, device=card).to(dtype)
+    kp = torch.randn((P, page, Hkv, D), generator=g, device=card).to(dtype)
+    vp = torch.randn((P, page, Hkv, D), generator=g, device=card).to(dtype)
+    rng = np.random.default_rng(1)
+    if st0 is None:
+        bt = rng.integers(0, P, (B, npages))
+        st = rng.integers(0, npages * page - S + 1, B)
+    else:                   # the engine's layout: sentinel 0 past the end
+        live = -(-(st0 + S) // page)
+        bt = np.zeros((B, npages), np.int64)
+        bt[:, :live] = rng.permutation(np.arange(1, P))[:B * live].reshape(
+            B, live)
+        st = np.full(B, st0)
+    bt = torch.tensor(bt, dtype=torch.int32, device=card)
+    st = torch.tensor(st, dtype=torch.int32, device=card)
+    before = flash_prefill_paged.launches
+    got = flash_prefill_paged(q, kp, vp, bt, st, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_prefill_paged.launches == before + 1
+    want = ref_paged_prefill(q, kp, vp, bt, st, softcap=softcap)
+    tol = {"atol": TOL[dtype], "rtol": TOL[dtype]}
+    if case in LLAMA_CHUNKS and dtype == torch.bfloat16:
+        tol = MAIN_SHAPE_PREFILL_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+TOY_CFGS = {
+    # the reference's toy config (tests/test_paged_engine.py): head_dim 16
+    "hd16": dict(name="paged-eng", arch_type="dense", n_layers=2, d_model=32,
+                 n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
+                 dtype="float32"),
+    "hd32": dict(name="toy", arch_type="dense", n_layers=3, d_model=64,
+                 n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128,
+                 vocab_size=64, dtype="float32", layer_pattern=(ATTN, ATTN)),
+}
+
+
+def _toy_tokens(cfg, cpu, dev, **engine_kw):
+    p = {m: tree_map(lambda t: t.to(dev), t) for m, t in cpu.items()}
+    eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"], "m1": p["m1"]},
+                            device=dev, num_pages=64, page_size=8,
+                            **engine_kw)
+    with eng.shared_context(list(range(4, 27))) as ctx:
+        reqs = [ctx.generate(m, [5, 6, 7 + i], SamplingParams(max_tokens=6))
+                for i, m in enumerate(("m0", "m1", "m0"))]
+        return [r.result().tolist() for r in reqs], eng
+
+
+def _toy_weights(name):
+    cfg = ModelConfig(**TOY_CFGS[name])
+    return cfg, {m: init_params(cfg, s, device="cpu")
+                 for m, s in (("base", 0), ("m0", 1), ("m1", 2))}
+
+
+@pytest.mark.parametrize("name", sorted(TOY_CFGS))
+def test_toy_engine_on_card_matches_cpu(card, name):
     """The same toy engine, same weights: card (kernels) and CPU (plain
     versions) give identical greedy tokens."""
-    cfg = ModelConfig(name="toy", arch_type="dense", n_layers=3, d_model=64,
-                      n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128,
-                      vocab_size=64, dtype="float32",
-                      layer_pattern=(ATTN, ATTN))
-    cpu = {m: init_params(cfg, s, device="cpu")
-           for m, s in (("base", 0), ("m0", 1), ("m1", 2))}
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        p = {m: tree_map(lambda t: t.to(dev), t) for m, t in cpu.items()}
-        eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"], "m1": p["m1"]},
-                                device=dev, num_pages=64, page_size=8)
-        with eng.shared_context(list(range(4, 27))) as ctx:
-            reqs = [ctx.generate(m, [5, 6, 7 + i], SamplingParams(max_tokens=6))
-                    for i, m in enumerate(("m0", "m1", "m0"))]
-            outs[dev] = [r.result().tolist() for r in reqs]
+    cfg, cpu = _toy_weights(name)
+    outs = {dev: _toy_tokens(cfg, cpu, dev)[0] for dev in ("cpu", "cuda")}
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("chunk", [3, 8])
+@pytest.mark.parametrize("name", sorted(TOY_CFGS))
+def test_chunked_toy_engine_on_card_matches_cpu(card, name, chunk):
+    """Chunked prefill (boundaries mid-page) through flash_prefill_paged:
+    card tokens equal the CPU's chunked tokens and the card's eager ones."""
+    cfg, cpu = _toy_weights(name)
+    eager = _toy_tokens(cfg, cpu, "cuda")[0]
+    kw = dict(chunked=True, chunk_size=chunk, token_budget=16)
+    cpu_out = _toy_tokens(cfg, cpu, "cpu", **kw)[0]
+    before = flash_prefill_paged.launches
+    card_out, eng = _toy_tokens(cfg, cpu, "cuda", **kw)
+    assert flash_prefill_paged.launches > before
+    assert eng.scheduler.stats.chunks > 1
+    assert card_out == cpu_out == eager
+
+
+def test_ragged_fused_batch_leaves_sentinel_row_zero_on_card(card):
+    """Two m0 rows and one m1 row: the fused grid has a padding row, which
+    must write nothing into pool row 0."""
+    cfg, cpu = _toy_weights("hd16")
+    p = {m: tree_map(lambda t: t.to(card), t) for m, t in cpu.items()}
+    eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"], "m1": p["m1"]},
+                            device=card, num_pages=64, page_size=8)
+    rng = np.random.default_rng(3)
+    for n, m in ((37, "m0"), (9, "m0"), (20, "m1")):
+        eng.generate(m, list(rng.integers(4, 60, size=n)),
+                     SamplingParams(max_tokens=5))
+    eng.run()
+    kv = eng.kvpool
+    for a in (*kv.k_groups.values(), *kv.v_groups.values()):
+        assert not a[:, 0].any()
+    for a in (*kv.k_tail, *kv.v_tail):
+        assert not a[0].any()

@@ -44,10 +44,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-print(len(names))
+print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20          # every module was visited
+    visited = set(r.stdout.split())
+    assert len(visited) >= 20                   # every module was visited
+    assert {"repro_torch.kernels.flash_prefill_paged",
+            "repro_torch.serving.scheduler.queue",
+            "repro_torch.serving.scheduler.scheduler"} <= visited

@@ -6,19 +6,28 @@ runs them; the port's wrappers, given CPU tensors, run their plain PyTorch
 versions (the Hopper kernels are held against those on the card by
 tests/test_torch_gpu.py and chip_smoke.py). Tolerances are the reference's
 own: 2e-5 in fp32, 2e-2 in bf16 (the two sides round bf16 at different
-places); paged_write is a copy and must be bit-exact.
+places); paged_write is a copy and must be bit-exact. The main-shape bf16
+tolerances the card holds the kernels to are shown here to pass a result
+rounded another way and to fail the faults they must catch.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_prefill_paged import \
+    flash_prefill_paged as pallas_prefill_paged
 from repro.kernels.ops import paged_attention
 from repro.kernels.paged_write import paged_write as ref_pallas_paged_write
+from repro.kernels.ref import ref_flash_prefill as jax_ref_flash_prefill
 from repro.kernels.ref import ref_paged_decode as jax_ref_paged_decode
+from repro.kernels.ref import ref_paged_prefill as jax_ref_paged_prefill
+from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.kernels.paged_write import paged_write
-from repro_torch.kernels.ref import MAIN_SHAPE_BF16_TOL, ref_paged_decode
+from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
+                                     MAIN_SHAPE_PREFILL_BF16_TOL,
+                                     ref_paged_decode, ref_paged_prefill)
 
 # B, Hq, Hkv, D, page, npages, pool  (tests/test_kernels.py PAGED_CASES)
 PAGED_CASES = [
@@ -64,6 +73,123 @@ def test_paged_decode_plain_matches_reference(case, dtype, softcap):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),
                                    atol=tol, rtol=tol)
+
+
+# B, Hq, Hkv, D, page, npages, pool, S  (tests/test_kernels.py)
+PAGED_PREFILL_CASES = [
+    (2, 4, 2, 64, 8, 4, 16, 5),      # chunk boundary mid-page
+    (1, 8, 1, 32, 16, 3, 8, 16),     # MQA, chunk == page
+    (3, 2, 2, 64, 8, 6, 32, 7),      # MHA, ragged starts
+    (1, 4, 2, 128, 16, 2, 8, 1),     # degenerate single-token chunk
+]
+
+
+def _prefill_inputs(case, seed=0):
+    B, Hq, Hkv, D, page, npages, P, S = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, Hq, D), np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    bt = rng.integers(0, P, (B, npages)).astype(np.int32)
+    st = rng.integers(0, npages * page - S + 1, (B,)).astype(np.int32)
+    return q, kp, vp, bt, st
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0], ids=["nocap", "softcap30"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", PAGED_PREFILL_CASES, ids=str)
+def test_paged_prefill_plain_matches_reference(case, dtype, softcap):
+    """The wrapper on CPU tensors (the plain version) against the
+    reference's plain version and its Pallas kernel in interpret mode, at
+    chunk starts anywhere in a page."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, kp, vp, bt, st = _prefill_inputs(case)
+    jargs = (jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+             jnp.asarray(bt), jnp.asarray(st))
+    pallas = pallas_prefill_paged(*jargs, softcap=softcap, interpret=True)
+    oracle = jax_ref_paged_prefill(*jargs, softcap=softcap)
+    targs = (torch.tensor(q).to(tdt), torch.tensor(kp).to(tdt),
+             torch.tensor(vp).to(tdt), torch.tensor(bt), torch.tensor(st))
+    before = flash_prefill_paged.launches
+    got = flash_prefill_paged(*targs, softcap=softcap)
+    assert flash_prefill_paged.launches == before   # CPU: plain version
+    assert got.dtype == tdt and got.shape == targs[0].shape
+    np.testing.assert_array_equal(
+        got.float().numpy(), ref_paged_prefill(*targs, softcap=softcap)
+        .float().numpy())
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+def test_paged_prefill_plain_matches_contiguous_flash():
+    """Position logic end to end against the reference's DENSE flash
+    oracle (tests/test_kernels.py): contiguous KV laid into identity-mapped
+    pages, the chunk = the last S positions of a causal sequence, so the
+    result is rows T-S.. of the dense one. head_dim 8 has no kernel: the
+    plain version only."""
+    B, Hq, Hkv, D, page, T, S = 1, 4, 2, 8, 8, 64, 24
+    rng = np.random.default_rng(1)
+    k = rng.standard_normal((B, T, Hkv, D), np.float32)
+    v = rng.standard_normal((B, T, Hkv, D), np.float32)
+    q_full = rng.standard_normal((B, T, Hq, D), np.float32)
+    full = jax_ref_flash_prefill(
+        jnp.asarray(q_full).transpose(0, 2, 1, 3),
+        jnp.asarray(k).transpose(0, 2, 1, 3),
+        jnp.asarray(v).transpose(0, 2, 1, 3)).transpose(0, 2, 1, 3)
+    got = flash_prefill_paged(
+        torch.tensor(q_full[:, T - S:]),
+        torch.tensor(k).reshape(T // page, page, Hkv, D),
+        torch.tensor(v).reshape(T // page, page, Hkv, D),
+        torch.arange(T // page, dtype=torch.int32)[None],
+        torch.tensor([T - S], dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(full[:, T - S:]),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", ["context_chunk", "tails"])
+@pytest.mark.parametrize("fault", ["faithful", "wrong_page",
+                                   "one_key_too_many", "start_one_too_small"])
+def test_main_shape_prefill_bf16_tolerance_separates_faults(fault, shape):
+    """``MAIN_SHAPE_PREFILL_BF16_TOL``, which the card holds the bf16
+    ``flash_prefill_paged`` kernel to at the chunked main path's shapes
+    (a 200-token chunk at start 800; four 40-token tails at start 992),
+    passes a result rounded through another path (fp64) and fails one wrong
+    page per sequence, the causal boundary one key too far (every query
+    sees the key after its own: in the plain version, start + 1) and a
+    start one too small (every query loses its own key)."""
+    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
+    B, S, npages, st0 = {"context_chunk": (1, 200, 64, 800),
+                         "tails": (4, 40, 128, 992)}[shape]
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.standard_normal((B, S, Hq, D), np.float32))
+    kp, vp = (torch.tensor(rng.standard_normal((P, page, Hkv, D),
+                                               np.float32))
+              for _ in range(2))
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    live = -(-(st0 + S) // page)
+    bt = torch.zeros((B, npages), dtype=torch.int32)
+    bt[:, :live] = torch.tensor(
+        rng.permutation(np.arange(1, P))[:B * live].reshape(B, live))
+    start = torch.full((B,), st0, dtype=torch.int32)
+    want = ref_paged_prefill(q, kp, vp, bt, start).float()
+    if fault == "faithful":
+        got = ref_paged_prefill(q.double(), kp.double(), vp.double(), bt,
+                                start)
+    elif fault == "one_key_too_many":
+        got = ref_paged_prefill(q, kp, vp, bt, start + 1)
+    elif fault == "start_one_too_small":
+        got = ref_paged_prefill(q, kp, vp, bt, start - 1)
+    else:
+        bad = bt.clone()
+        for b in range(B):
+            j = int(rng.integers(0, st0 // page))
+            bad[b, j] = (bt[b, j] % (P - 1)) + 1
+        got = ref_paged_prefill(q, kp, vp, bad, start)
+    got = got.bfloat16().float()
+    close = torch.allclose(got, want, **MAIN_SHAPE_PREFILL_BF16_TOL)
+    assert close == (fault == "faithful"), (fault, (got - want).abs().max())
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -146,6 +272,8 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
     bt = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         paged_decode_attention(q, kp, kp, bt, bt[:, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_prefill_paged(q[:, None], kp, kp, bt, bt[:, 0])
     with pytest.raises(ValueError, match="unsupported device"):
         paged_write(torch.zeros((1, 8, 1, 32), device="meta"),
                     torch.zeros((1, 8, 1, 32), device="meta"), kp, kp,
