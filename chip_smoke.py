@@ -4,14 +4,21 @@
     python3 chip_smoke.py [n_layers]     # default: all 32 layers
 
 Phases, in order; any failure exits non-zero (nothing is caught):
-  1. device and build: the card's name and power limit; the three CUDA
+  1. device and build: the card's name and power limit; the four CUDA
      sources built with nvcc for sm_90a, one process each, with ptxas'
      register/shared-memory/spill report;
   2. each Hopper kernel against its plain PyTorch version: the reference's
      kernel-test cases (plus head_dim 16, the toy configs') and the main
      path's shapes (bf16 there held to ``kernels.ref.MAIN_SHAPE_BF16_TOL``
      and ``MAIN_SHAPE_PREFILL_BF16_TOL``), with CUDA-event times of the
-     kernel alone, the plain version and a library yardstick, and the bound;
+     kernel alone, the plain version and a library yardstick, and the bound.
+     Dense ``flash_prefill``: the reference's cases and the edges its tests
+     leave out (rows with no visible key exactly 0, S != T, windows of 1
+     and past T, group 16, head_dim 256), then, through
+     ``repro_torch.kernels.flash_attention``, Llama-3.1-8B's heads at
+     S = T = 1000 and 8192 (causal) and Gemma-2-27B's at 8192 (window 4096,
+     softcap 50) in bf16 (``MAIN_SHAPE_FLASH_BF16_TOL``), and the 1000-token
+     shape in fp32 (2e-5);
   3. toy fp32 engines on the card against the same engines on the CPU, at
      head_dim 16 (the reference's toy config) and 32: identical greedy
      tokens, eager and chunked (chunk sizes 3 and 8, boundaries mid-page),
@@ -23,7 +30,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      2048-page pool: a shared ~1000-token context, two requests per model,
      then a second turn that hits the prefix cache; launch counters are
      zeroed just before and read just after, and peak device memory must
-     stay within the weights, held once, plus the pool and 2 GiB;
+     stay within the weights, held once, plus the pool and 2 GiB. Then the
+     kernel API's path over the same base weights: layer 0's post-RoPE
+     q/k/v of the shared context through ``kernels.flash_attention``
+     (counters zeroed just before, read just after), held against the
+     port's dense ``models.attention.attention`` on the same q/k/v;
   5. the chunked main path: the same weights served by a new engine
      (``chunked=True``, 200-token chunks, a 512-token budget) over a fresh
      pool, phase 4's pool freed first; the same traffic. Every prefill goes
@@ -51,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 PEAK_SLACK_BYTES = 2 << 30         # main path's activations above its weights
 
 
@@ -284,6 +296,7 @@ def phase_kernels(card):
     del nk, nv, kpool, vpool, src_k, src_v
     torch.cuda.empty_cache()
     return {
+        "flash_prefill": phase_flash_kernel(card),
         "flash_prefill_paged": phase_prefill_kernel(card),
         "paged_decode": dict(max_abs_err=dec_err, ms=dec_ms,
                              plain_ms=dec_plain, bound_ms=dec_bound,
@@ -418,6 +431,161 @@ def phase_prefill_kernel(card):
     return perf
 
 
+FLASH_CASES = [
+    # B, Hq, Hkv, S, T, D, causal, window, softcap (tests/test_kernels.py)
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0),
+    (1, 8, 8, 256, 256, 128, True, 0, 0.0),
+    (1, 8, 1, 192, 192, 64, True, 0, 0.0),
+    (2, 4, 2, 128, 128, 64, True, 64, 0.0),
+    (1, 4, 2, 256, 256, 128, True, 0, 50.0),
+    (1, 2, 1, 64, 320, 64, True, 0, 0.0),
+    (1, 4, 4, 96, 96, 32, True, 32, 30.0),
+    # the edges tests/test_torch_kernels.py adds (FLASH_EDGES)
+    (1, 2, 1, 64, 16, 64, True, 8, 0.0),      # rows 23.. see no key
+    (2, 4, 2, 48, 80, 32, False, 0, 0.0),
+    (1, 4, 2, 80, 48, 32, False, 16, 0.0),     # rows 63.. see no key
+    (1, 4, 2, 64, 64, 32, True, 100, 0.0),
+    (1, 4, 1, 40, 40, 32, True, 1, 0.0),
+    (1, 4, 2, 97, 100, 64, True, 0, 0.0),
+    (1, 4, 2, 97, 100, 64, True, 16, 20.0),
+    (1, 16, 1, 64, 64, 32, True, 0, 0.0),
+    (1, 2, 1, 32, 32, 256, True, 0, 0.0),
+    (2, 10, 1, 1000, 1000, 256, True, 0, 0.0),  # MQA group 10, S=1000
+]
+# name, B, Hq, Hkv, S, T, D, dtype, window, softcap, query scale: the full
+# widths the kernel API runs at. Llama-3.1-8B (configs/llama31_8b.py) at the
+# main path's 1000-token shared context and at 8192; Gemma-2-27B
+# (src/repro/configs/gemma2_27b.py) at 8192 with its 4096-token window and
+# softcap 50, its queries scaled by 8 (scores of std ~8) so that the cap
+# bends the largest scores (tests/test_torch_kernels.py::FLASH_TOL_SHAPES
+# shows that skipping it then fails the tolerance); Llama at 1000 in fp32.
+FLASH_MAIN = [
+    ("a", 1, 32, 8, 1000, 1000, 128, "bfloat16", 0, 0.0, 1.0),
+    ("b", 1, 32, 8, 8192, 8192, 128, "bfloat16", 0, 0.0, 1.0),
+    ("c", 1, 32, 16, 8192, 8192, 128, "bfloat16", 4096, 50.0, 8.0),
+    ("d", 1, 32, 8, 1000, 1000, 128, "float32", 0, 0.0, 1.0),
+]
+
+
+def visible_pairs(S, T, causal, window) -> int:
+    """(query, key) pairs under the mask: the work a whole-block-skipping
+    kernel must do."""
+    import numpy as np
+    i = np.arange(S)
+    hi = np.minimum(T, i + 1) if causal else np.full(S, T)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, int)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_bound_ms(B, Hq, Hkv, S, T, D, causal, window, itemsize) -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, flops) of one dense
+    flash_prefill call: q, k, v and the output moved once; 4 * Hq * D flops
+    per visible pair, at the dense peak for the type (bf16 tensor cores, or
+    fp32 outside them)."""
+    nbytes = (2 * B * Hq * S + 2 * B * Hkv * T) * D * itemsize
+    flops = 4 * Hq * D * B * visible_pairs(S, T, causal, window)
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_flash_kernel(card):
+    """Dense flash_prefill against ref_flash_prefill on the card: the
+    reference's cases and edges, then the full-width shapes through the
+    kernel API, timed. Returns the JSON record of shape (a), the main
+    path's (the kernel API's path runs the shared 1000-token context)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.ref import (MAIN_SHAPE_FLASH_BF16_TOL,
+                                         ref_flash_prefill)
+
+    dev = torch.device("cuda")
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    for B, Hq, Hkv, S, T, D, causal, window, cap in FLASH_CASES:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn((B, Hq, S, D), dtype)
+            k, v = randn((B, Hkv, T, D), dtype), randn((B, Hkv, T, D), dtype)
+            got = flash_prefill(q, k, v, **kw)
+            want = ref_flash_prefill(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=tol[dtype], rtol=tol[dtype])
+            # rows with no visible key: exactly 0, as in the Pallas kernel
+            i = torch.arange(S, device=dev)[:, None]
+            j = torch.arange(T, device=dev)[None, :]
+            vis = torch.ones((S, T), dtype=torch.bool, device=dev)
+            if causal:
+                vis &= j <= i
+            if window:
+                vis &= j > i - window
+            blind = ~vis.any(dim=1)
+            assert not got[:, :, blind].any(), "a row with no key is not 0"
+            log(f"[flash_prefill] case {(B, Hq, Hkv, S, T, D)} {dtype} "
+                f"{kw}: max|err| {err:.3e} (tol {tol[dtype]}); "
+                f"{int(blind.sum())} rows with no visible key, all 0")
+
+    perf = None
+    for name, B, Hq, Hkv, S, T, D, dt, window, cap, qs in FLASH_MAIN:
+        dtype = getattr(torch, dt)
+        kw = dict(window=window, softcap=cap)
+        q = randn((B, S, Hq, D), dtype, qs)            # the model's layout
+        k, v = randn((B, T, Hkv, D), dtype), randn((B, T, Hkv, D), dtype)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        got = kernels.flash_attention(q, k, v, **kw)
+        want = ref_flash_prefill(qh, kh, vh, **kw).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        tol_used = (MAIN_SHAPE_FLASH_BF16_TOL if dtype == torch.bfloat16
+                    else {"atol": 2e-5, "rtol": 2e-5})
+        torch.testing.assert_close(got.float(), want.float(), **tol_used)
+        del want
+        long_seq = S > 4096
+        ms = cuda_ms(lambda: kernels.flash_attention(q, k, v, **kw),
+                     iters=5 if long_seq else 20, warmup=1 if long_seq else 3)
+        plain = cuda_ms(lambda: ref_flash_prefill(qh, kh, vh, **kw),
+                        iters=2 if long_seq else 10, warmup=1)
+        lib_ms, lib_txt = None, "none (no single PyTorch call computes a "             "softcapped attention)"
+        if not window and not cap:
+            # torch's is_causal is aligned top-left, as the kernel's mask
+            lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                 enable_gqa=True)
+            torch.testing.assert_close(lib.transpose(1, 2).float(),  # sanity
+                                       got.float(), atol=2e-2, rtol=2e-2)
+            del lib
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True),
+                iters=5 if long_seq else 20, warmup=1 if long_seq else 3)
+            lib_txt = f"sdpa (is_causal, enable_gqa) {lib_ms:.4f} ms"
+        bound, by, nbytes, flops = flash_bound_ms(
+            B, Hq, Hkv, S, T, D, True, window, q.element_size())
+        log(f"[flash_prefill] shape ({name}) B={B} S={S} T={T} Hq={Hq} "
+            f"Hkv={Hkv} D={D} {dt} window {window} softcap {cap} query "
+            f"scale {qs}, via kernels.flash_attention: max|err| {err:.3e}, "
+            f"relative norm {rel:.3e} (tol {tol_used}); kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, {lib_txt}, bound {bound:.4f} ms by {by} "
+            f"({nbytes} B, {flops} flop; {flops / ms / 1e9:.2f} TFLOP/s) on "
+            f"{card}")
+        if name == "a":
+            perf = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, k, v, qh, kh, vh, got
+        torch.cuda.empty_cache()
+    return perf
+
+
 # ======================================================================
 # phase 3
 
@@ -520,12 +688,14 @@ def phase_toy_engine():
 
 
 def counters():
+    from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
     from repro_torch.kernels.paged_decode import paged_decode_attention
     from repro_torch.kernels.paged_write import paged_write
     return {"paged_decode": paged_decode_attention,
             "paged_write": paged_write,
-            "flash_prefill_paged": flash_prefill_paged}
+            "flash_prefill_paged": flash_prefill_paged,
+            "flash_prefill": flash_prefill}
 
 
 def serve_turns(eng, cfg, card, tag):
@@ -651,6 +821,7 @@ def phase_main_path(card, n_layers: int):
     assert s["decode_dispatches"] == s["decode_steps"], s
     assert launches["paged_write"] > 0, launches
     assert launches["flash_prefill_paged"] == 0, launches   # eager prefill
+    assert launches["flash_prefill"] == 0, launches   # not on the engine
     assert eng.block_pool.free_count == free0, (eng.block_pool.free_count,
                                                 free0)
     eng.block_pool.check_invariants()
@@ -660,6 +831,62 @@ def phase_main_path(card, n_layers: int):
     return launches, dict(engine=eng, cfg=cfg, turns=turns,
                           context_s=context_s, kv=kv,
                           tokens=[list(o.tokens) for o in reqs])
+
+
+def phase_kernel_api(card, eager: dict):
+    """The kernel API's path at full width over phase 4's base weights:
+    layer 0's post-RoPE q/k/v of the shared 1000-token context (the
+    engine's own projections, ``models.attention.project_qkv``) through
+    ``repro_torch.kernels.flash_attention``, with every launch counter
+    zeroed just before and read just after. The result is held to
+    ``MAIN_SHAPE_FLASH_BF16_TOL`` against the port's dense
+    ``models.attention.attention`` on the same q/k/v at positions
+    0..S-1, run in fp32 and rounded once to bf16 as the kernel is; the
+    bf16 run of ``attention``, which rounds q * scale to bf16 before its
+    product, is printed beside it, not asserted. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.ref import MAIN_SHAPE_FLASH_BF16_TOL
+    from repro_torch.launch.main_path import PROMPT_TOKENS, tokens
+    from repro_torch.models.attention import attention, project_qkv
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import _embed, _layers
+
+    cfg, base = eager["cfg"], eager["engine"].base_params
+    prompt = tokens(cfg, np.random.default_rng(0), PROMPT_TOKENS)  # phase 4's
+    dev = torch.device("cuda")
+    toks = torch.tensor([prompt], device=dev)
+    pos = torch.arange(len(prompt), dtype=torch.int32, device=dev)[None]
+    lp, _ = next(_layers(cfg, base, None))
+    h = rmsnorm(_embed(cfg, base["embed"], toks), lp["norm1"], cfg.norm_eps)
+    q, k, v = project_qkv(lp["attn"], h, cfg, pos)
+    torch.cuda.synchronize()
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    got = kernels.flash_attention(q, k, v, softcap=cfg.attn_softcap or 0.0)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    want = attention(q.float(), k.float(), v.float(), pos, pos,
+                     softcap=cfg.attn_softcap).to(q.dtype)
+    bf16 = attention(q, k, v, pos, pos, softcap=cfg.attn_softcap)
+    err = (got.float() - want.float()).abs().max().item()
+    err16 = (got.float() - bf16.float()).abs().max().item()
+    log(f"[kernel api] {cfg.name} layer 0, shared context of {len(prompt)} "
+        f"tokens: q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype}; "
+        f"launches {launches}; kernels.flash_attention vs "
+        f"models.attention.attention in fp32 on the same q/k/v: max|err| "
+        f"{err:.3e} (tol {MAIN_SHAPE_FLASH_BF16_TOL}); vs attention in bf16 "
+        f"(q * scale rounded to bf16 first; not asserted): max|err| "
+        f"{err16:.3e}")
+    torch.testing.assert_close(got.float(), want.float(),
+                               **MAIN_SHAPE_FLASH_BF16_TOL)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert launches["flash_prefill"] == 1, launches
+    assert sum(launches.values()) == 1, launches
+    return launches
 
 
 # ======================================================================
@@ -812,14 +1039,19 @@ def main() -> int:
     perf = phase_kernels(card)
     phase_toy_engine()
     eager_launches, eager = phase_main_path(card, n_layers)
+    api_launches = phase_kernel_api(card, eager)
     chunked_launches = phase_chunked(card, eager)
     del eager
     phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
 
     # each kernel with its launches on the path that runs it: the eager
-    # main path (phase 4) for paged_decode and paged_write, the chunked
-    # one (phase 5) for flash_prefill_paged
-    sources = {"paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
+    # main path (phase 4) for paged_decode and paged_write, the kernel API
+    # (after phase 4) for flash_prefill, the chunked main path (phase 5)
+    # for flash_prefill_paged
+    sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                                 "src/repro/kernels/flash_prefill.py:88",
+                                 api_launches),
+               "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                                 "src/repro/kernels/paged_decode.py:72",
                                 eager_launches),
                "paged_write": ("src/repro_torch/csrc/paged_write.cu",

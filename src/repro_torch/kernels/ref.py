@@ -29,6 +29,65 @@ MAIN_SHAPE_BF16_TOL = {"atol": 1e-3, "rtol": 1e-2}
 #: stays for their small cases.
 MAIN_SHAPE_PREFILL_BF16_TOL = {"atol": 1e-3, "rtol": 1e-2}
 
+#: How closely a bf16 ``flash_prefill`` kernel must match
+#: ``ref_flash_prefill`` at the full-width dense shapes (Llama-3.1-8B: Hq 32,
+#: Hkv 8, D 128, causal, S = T = 1000 and 8192; Gemma-2-27B: Hq 32, Hkv 16,
+#: window 4096, softcap 50). Both sides accumulate in fp32 and round once to
+#: bf16, so a result rounded another way (fp64) passes; the window one key
+#: too wide, the causal boundary one key too far, a query group reading the
+#: wrong kv head, or the softcap skipped moves some output by more and
+#: fails (``tests/test_torch_kernels.py``, at a narrow copy of that
+#: structure). The reference kernel tests' 2e-2 stays for their small cases.
+MAIN_SHAPE_FLASH_BF16_TOL = {"atol": 1e-3, "rtol": 1e-2}
+
+#: ``ref_flash_prefill`` materialises its scores in blocks of query rows of
+#: at most this many fp32 elements (1 GiB), so full-width shapes fit beside
+#: the kernel's inputs on the card
+_FLASH_REF_BLOCK = 1 << 28
+
+
+def ref_flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, scale: float | None = None):
+    """Dense GQA attention with materialised scores, head-major.
+
+    q: (B, Hq, S, D); k/v: (B, Hkv, T, D). Returns (B, Hq, S, D) in q's
+    dtype. Positions are relative and aligned top-left: query i sits at
+    position i and key j at j, also when S != T. Key j is visible to query
+    i iff j <= i (``causal``) and j > i - window (``window`` > 0). The op
+    order is ``repro.kernels.ref.ref_flash_prefill``'s: q to fp32 times
+    ``scale``, the score einsum, the softcap, the mask, the softmax, the
+    value einsum in fp32. One difference: a row with no visible key gives
+    0, as the Pallas kernel ``repro.kernels.flash_prefill`` does (its
+    denominator stays 0), where the reference's oracle gives mean(v). The
+    scores are materialised in blocks of query rows (a softmax row never
+    spans two), at most ``_FLASH_REF_BLOCK`` elements each."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(T, device=q.device)[None, :]
+    rows = max(1, _FLASH_REF_BLOCK // max(1, B * Hq * T))
+    out = torch.empty((B, Hkv, g, S, D), dtype=q.dtype, device=q.device)
+    for s0 in range(0, S, rows):
+        s1 = min(S, s0 + rows)
+        qg = q[:, :, s0:s1].reshape(B, Hkv, g, s1 - s0, D).float() * scale
+        s = torch.einsum("bhgsd,bhtd->bhgst", qg, kf)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        qpos = torch.arange(s0, s1, device=q.device)[:, None]
+        mask = torch.ones((s1 - s0, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, NEG)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgst,bhtd->bhgsd", p, vf)
+        o = torch.where(mask.any(dim=-1)[:, None], o, 0.0)
+        out[:, :, :, s0:s1] = o.to(q.dtype)
+    return out.reshape(B, Hq, S, D)
+
 
 def ref_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
                      softcap: float = 0.0, scale: float | None = None):

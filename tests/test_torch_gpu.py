@@ -6,22 +6,26 @@ nvcc for sm_90a at first use). Elsewhere every test skips, decided inside a
 fixture so that every pytest worker collects the same tests. Tolerances are
 the reference kernel tests' (2e-5 fp32, 2e-2 bf16), except bf16 at the
 Llama-3.1-8B decode and chunk shapes, which are held to
-``MAIN_SHAPE_BF16_TOL`` and ``MAIN_SHAPE_PREFILL_BF16_TOL``; paged_write is
-exact. The toy engines run at the reference's own head_dim 16 and at 32,
-eager and chunked.
+``MAIN_SHAPE_BF16_TOL`` and ``MAIN_SHAPE_PREFILL_BF16_TOL``, and at the
+full-width dense shapes (Llama-3.1-8B's and Gemma-2-27B's heads), held to
+``MAIN_SHAPE_FLASH_BF16_TOL``; paged_write is exact. The toy engines run at
+the reference's own head_dim 16 and at 32, eager and chunked.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.kernels.paged_write import paged_write
 from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
+                                     MAIN_SHAPE_FLASH_BF16_TOL,
                                      MAIN_SHAPE_PREFILL_BF16_TOL,
-                                     ref_paged_decode, ref_paged_prefill,
-                                     ref_paged_write)
+                                     ref_flash_prefill, ref_paged_decode,
+                                     ref_paged_prefill, ref_paged_write)
 from repro_torch.models import init_params
 from repro_torch.params import tree_map
 from repro_torch.serving import LocalDisaggEngine, SamplingParams
@@ -151,6 +155,112 @@ def test_flash_prefill_paged_kernel_matches_plain(card, case, dtype, softcap):
     if case in LLAMA_CHUNKS and dtype == torch.bfloat16:
         tol = MAIN_SHAPE_PREFILL_BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# B, Hq, Hkv, S, T, D, causal, window, softcap
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0),     # tests/test_kernels.py cases
+    (1, 8, 8, 256, 256, 128, True, 0, 0.0),
+    (1, 8, 1, 192, 192, 64, True, 0, 0.0),
+    (2, 4, 2, 128, 128, 64, True, 64, 0.0),
+    (1, 4, 2, 256, 256, 128, True, 0, 50.0),
+    (1, 2, 1, 64, 320, 64, True, 0, 0.0),
+    (1, 4, 4, 96, 96, 32, True, 32, 30.0),
+    (1, 2, 1, 64, 16, 64, True, 8, 0.0),       # rows 23.. see no key
+    (2, 4, 2, 48, 80, 32, False, 0, 0.0),      # the CPU tests' edges
+    (1, 4, 2, 80, 48, 32, False, 16, 0.0),     # rows 63.. see no key
+    (1, 4, 2, 64, 64, 32, True, 100, 0.0),
+    (1, 4, 1, 40, 40, 32, True, 1, 0.0),
+    (1, 4, 2, 97, 100, 64, True, 0, 0.0),
+    (1, 4, 2, 97, 100, 64, True, 16, 20.0),
+    (1, 16, 1, 64, 64, 32, True, 0, 0.0),
+    (1, 2, 1, 32, 32, 256, True, 0, 0.0),
+    (2, 10, 1, 1000, 1000, 256, True, 0, 0.0),  # MQA group 10, S=1000
+]
+# B, Hq, Hkv, S, T, D, window, softcap, query scale: the full-width shapes
+# in the model's layout (chip_smoke.FLASH_MAIN): Llama-3.1-8B's heads at
+# 1000 and 8192 tokens, Gemma-2-27B's at 8192 with its window and softcap
+FLASH_MAIN = {"llama_1000": (1, 32, 8, 1000, 1000, 128, 0, 0.0, 1.0),
+              "llama_8192": (1, 32, 8, 8192, 8192, 128, 0, 0.0, 1.0),
+              "gemma2_27b_8192": (1, 32, 16, 8192, 8192, 128, 4096, 50.0,
+                                  8.0)}
+
+
+def _no_key_rows(S, T, causal, window, device):
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    vis = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= j > i - window
+    return ~vis.any(dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_prefill_kernel_matches_plain(card, case, dtype):
+    B, Hq, Hkv, S, T, D, causal, window, softcap = case
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((B, Hq, S, D), generator=g, device=card).to(dtype)
+    k = torch.randn((B, Hkv, T, D), generator=g, device=card).to(dtype)
+    v = torch.randn((B, Hkv, T, D), generator=g, device=card).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    want = ref_flash_prefill(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    blind = _no_key_rows(S, T, causal, window, card)
+    assert not got[:, :, blind].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", sorted(FLASH_MAIN))
+def test_flash_attention_full_width_matches_plain(card, shape, dtype):
+    """Through ``kernels.flash_attention`` in the model's layout; bf16 held
+    to ``MAIN_SHAPE_FLASH_BF16_TOL``, fp32 to 2e-5."""
+    B, Hq, Hkv, S, T, D, window, softcap, qscale = FLASH_MAIN[shape]
+    g = torch.Generator(device=card).manual_seed(1)
+    q = (torch.randn((B, S, Hq, D), generator=g, device=card)
+         * qscale).to(dtype)
+    k = torch.randn((B, T, Hkv, D), generator=g, device=card).to(dtype)
+    v = torch.randn((B, T, Hkv, D), generator=g, device=card).to(dtype)
+    kw = dict(window=window, softcap=softcap)
+    got = kernels.flash_attention(q, k, v, **kw)
+    want = ref_flash_prefill(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), **kw).transpose(1, 2)
+    tol = MAIN_SHAPE_FLASH_BF16_TOL if dtype == torch.bfloat16 else {
+        "atol": 2e-5, "rtol": 2e-5}
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_attention_reads_strided_views_in_place(card):
+    """Non-contiguous seq-major views (q, k, v cut from one packed qkv
+    projection, as a fused projection would give them) run without a copy
+    and give the same bits as contiguous copies; a row that is not 16-byte
+    aligned is refused."""
+    B, S, Hq, Hkv, D = 2, 150, 8, 2, 64
+    g = torch.Generator(device=card).manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((B, S, Hq + 2 * Hkv, D), generator=g,
+                          device=card).to(dtype)
+        q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+        assert not q.is_contiguous() and not k.is_contiguous()
+        kw = dict(window=40, softcap=20.0)
+        got = kernels.flash_attention(q, k, v, **kw)
+        want = kernels.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got, want)
+        head_major = flash_prefill(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw)
+        assert torch.equal(head_major.transpose(1, 2), want)
+    wide = torch.randn((B, S, Hq, D + 1), device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.flash_attention(wide[..., 1:], k.float(), v.float())
 
 
 TOY_CFGS = {

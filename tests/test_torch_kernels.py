@@ -8,13 +8,16 @@ tests/test_torch_gpu.py and chip_smoke.py). Tolerances are the reference's
 own: 2e-5 in fp32, 2e-2 in bf16 (the two sides round bf16 at different
 places); paged_write is a copy and must be bit-exact. The main-shape bf16
 tolerances the card holds the kernels to are shown here to pass a result
-rounded another way and to fail the faults they must catch.
+rounded another way and to fail the faults they must catch. Dense
+flash_prefill follows the Pallas kernel where its oracle differs: a row with
+no visible key is 0 there, mean(v) in ``repro.kernels.ref``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_prefill import flash_prefill as pallas_flash_prefill
 from repro.kernels.flash_prefill_paged import \
     flash_prefill_paged as pallas_prefill_paged
 from repro.kernels.ops import paged_attention
@@ -22,12 +25,16 @@ from repro.kernels.paged_write import paged_write as ref_pallas_paged_write
 from repro.kernels.ref import ref_flash_prefill as jax_ref_flash_prefill
 from repro.kernels.ref import ref_paged_decode as jax_ref_paged_decode
 from repro.kernels.ref import ref_paged_prefill as jax_ref_paged_prefill
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.kernels.paged_write import paged_write
 from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
+                                     MAIN_SHAPE_FLASH_BF16_TOL,
                                      MAIN_SHAPE_PREFILL_BF16_TOL,
-                                     ref_paged_decode, ref_paged_prefill)
+                                     ref_flash_prefill, ref_paged_decode,
+                                     ref_paged_prefill)
 
 # B, Hq, Hkv, D, page, npages, pool  (tests/test_kernels.py PAGED_CASES)
 PAGED_CASES = [
@@ -278,3 +285,252 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         paged_write(torch.zeros((1, 8, 1, 32), device="meta"),
                     torch.zeros((1, 8, 1, 32), device="meta"), kp, kp,
                     np.ones((1, 1), np.int32), np.ones((1,), np.int32))
+    qd = torch.zeros((1, 4, 8, 32), device="meta")
+    kd = torch.zeros((1, 2, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_prefill(qd, kd, kd)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(qd, kd, kd)
+
+
+@pytest.mark.parametrize("spec", ["f16", "int32", "head_dim48", "hq6_hkv4",
+                                  "group32", "mixed_dtypes"])
+@pytest.mark.parametrize("entry", ["flash_prefill", "flash_attention"])
+def test_flash_wrappers_refuse_what_the_kernel_does_not_take(entry, spec):
+    """Off the CPU, the dense wrappers refuse fp16 and integer tensors,
+    head_dim 48, Hq not a multiple of Hkv, and a query group above 16, by
+    name, before they look at the device (meta tensors here)."""
+    hq, hkv, d, dtype, kdtype = 4, 2, 32, torch.float32, None
+    if spec == "f16":
+        dtype = torch.float16
+    elif spec == "int32":
+        dtype = torch.int32
+    elif spec == "head_dim48":
+        d = 48
+    elif spec == "hq6_hkv4":
+        hq, hkv = 6, 4
+    elif spec == "group32":
+        hq, hkv = 32, 1
+    else:
+        kdtype = torch.bfloat16
+    q = torch.zeros((1, hq, 8, d), dtype=dtype, device="meta")
+    k = torch.zeros((1, hkv, 8, d), dtype=kdtype or dtype, device="meta")
+    match = {"head_dim48": "head_dim 48", "hq6_hkv4": "Hq=6 Hkv=4",
+             "group32": "query group"}.get(spec, "dtypes")
+    with pytest.raises(ValueError, match=match):
+        if entry == "flash_prefill":
+            flash_prefill(q, k, k)
+        else:
+            flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            k.transpose(1, 2))
+
+
+# ----------------------------------------------------------------------
+# dense flash_prefill
+
+# B, Hq, Hkv, S, T, D, window, softcap  (tests/test_kernels.py FLASH_CASES;
+# causal, as there)
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, 0, 0.0),
+    (1, 8, 8, 256, 256, 128, 0, 0.0),       # MHA
+    (1, 8, 1, 192, 192, 64, 0, 0.0),        # MQA, non-pow2 seq
+    (2, 4, 2, 128, 128, 64, 64, 0.0),       # sliding window
+    (1, 4, 2, 256, 256, 128, 0, 50.0),      # softcap (gemma2)
+    (1, 2, 1, 64, 320, 64, 0, 0.0),         # cross-len
+    (1, 4, 4, 96, 96, 32, 32, 30.0),        # window + softcap, odd sizes
+]
+# B, Hq, Hkv, S, T, D, causal, window, softcap: what FLASH_CASES leave out
+FLASH_EDGES = {
+    "no_visible_key": (1, 2, 1, 64, 16, 64, True, 8, 0.0),
+    "noncausal_s_lt_t": (2, 4, 2, 48, 80, 32, False, 0, 0.0),
+    "noncausal_s_gt_t_window": (1, 4, 2, 80, 48, 32, False, 16, 0.0),
+    "window_ge_t": (1, 4, 2, 64, 64, 32, True, 100, 0.0),
+    "window_1": (1, 4, 1, 40, 40, 32, True, 1, 0.0),
+    "s97_t100": (1, 4, 2, 97, 100, 64, True, 0, 0.0),
+    "s97_t100_window_softcap": (1, 4, 2, 97, 100, 64, True, 16, 20.0),
+    "group16": (1, 16, 1, 64, 64, 32, True, 0, 0.0),
+    "head_dim256": (1, 2, 1, 32, 32, 256, True, 0, 0.0),
+}
+#: cases where some query row sees no key (the reference's oracle gives
+#: mean(v) there, the Pallas kernel and the port 0)
+FLASH_MASKED_ROWS = {"no_visible_key", "noncausal_s_gt_t_window"}
+
+
+def _rows_with_a_key(S, T, causal, window):
+    """(S,) bool: which query rows see at least one key."""
+    i, j = np.arange(S)[:, None], np.arange(T)[None, :]
+    vis = np.ones((S, T), bool)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= j > i - window
+    return vis.any(axis=1)
+
+
+def _flash_inputs(B, Hq, Hkv, S, T, D, seed=0):
+    """Head-major q (B, Hq, S, D), k/v (B, Hkv, T, D) as fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, S, D), np.float32),
+            rng.standard_normal((B, Hkv, T, D), np.float32),
+            rng.standard_normal((B, Hkv, T, D), np.float32))
+
+
+def _flash_both(arrays, dtype, **kw):
+    """(port output, Pallas kernel output in interpret mode, reference
+    oracle output) as fp32 numpy, on the same inputs."""
+    jdt, tdt, _ = DTYPES[dtype]
+    jargs = [jnp.asarray(a, jdt) for a in arrays]
+    targs = [torch.tensor(a).to(tdt) for a in arrays]
+    before = flash_prefill.launches
+    got = flash_prefill(*targs, **kw)
+    assert flash_prefill.launches == before            # CPU: plain version
+    assert got.dtype == tdt and got.shape == targs[0].shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  ref_flash_prefill(*targs, **kw)
+                                  .float().numpy())
+    pallas = pallas_flash_prefill(*jargs, interpret=True, **kw)
+    oracle = jax_ref_flash_prefill(*jargs, **kw)
+    return (got.float().numpy(), np.asarray(pallas, np.float32),
+            np.asarray(oracle, np.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_prefill_plain_matches_pallas(case, dtype):
+    """The wrapper on CPU tensors against the Pallas kernel in interpret
+    mode and the reference's oracle, every reference case, f32 and bf16."""
+    B, Hq, Hkv, S, T, D, window, softcap = case
+    tol = DTYPES[dtype][2]
+    got, pallas, oracle = _flash_both(_flash_inputs(B, Hq, Hkv, S, T, D),
+                                      dtype, window=window, softcap=softcap)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("edge", sorted(FLASH_EDGES))
+def test_flash_prefill_edges_match_pallas(edge, dtype):
+    """Shapes and masks the reference cases leave out, against the Pallas
+    kernel in interpret mode: rows with no visible key (exactly 0 on both),
+    causal=False with S != T, a window at or past T, a window of 1 (each
+    query sees only its own key), S and T not powers of two, group 16 and
+    head_dim 256."""
+    B, Hq, Hkv, S, T, D, causal, window, softcap = FLASH_EDGES[edge]
+    tol = DTYPES[dtype][2]
+    arrays = _flash_inputs(B, Hq, Hkv, S, T, D, seed=1)
+    got, pallas, oracle = _flash_both(arrays, dtype, causal=causal,
+                                      window=window, softcap=softcap)
+    np.testing.assert_allclose(got, pallas, atol=tol, rtol=tol)
+    seen = _rows_with_a_key(S, T, causal, window)
+    assert (not seen.all()) == (edge in FLASH_MASKED_ROWS)
+    if edge == "no_visible_key":
+        # query i sees keys j <= i, j > i - 8, j < 16: none for i >= 23
+        assert seen.sum() == 23 and not seen[23:].any()
+    # rows with no visible key: exactly 0 in the port and the Pallas
+    # kernel, the oracle's mean(v) there; every other row as the oracle's
+    assert not got[:, :, ~seen].any() and not pallas[:, :, ~seen].any()
+    assert got[:, :, seen].all()
+    if not seen.all():
+        assert np.abs(oracle[:, :, ~seen]).max() > 0.1
+    np.testing.assert_allclose(got[:, :, seen], oracle[:, :, seen],
+                               atol=tol, rtol=tol)
+    if edge == "window_1":
+        v = torch.tensor(arrays[2]).to(DTYPES[dtype][1]).float().numpy()
+        np.testing.assert_array_equal(got, np.repeat(v, Hq // Hkv, axis=1))
+
+
+def test_flash_prefill_block_sizes_do_not_change_result():
+    """test_flash_block_skipping_correct's case (S=512, window 128, 64-row
+    blocks, so the Pallas kernel skips many key blocks whole): the port,
+    given the same block sizes, matches it."""
+    arrays = _flash_inputs(1, 2, 1, 512, 512, 64, seed=2)
+    kw = dict(window=128, block_q=64, block_k=64)
+    got = flash_prefill(*(torch.tensor(a) for a in arrays), **kw)
+    pallas = pallas_flash_prefill(*(jnp.asarray(a) for a in arrays),
+                                  interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_array_equal(
+        got.numpy(), flash_prefill(*(torch.tensor(a) for a in arrays),
+                                   window=128).numpy())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES] + [
+    FLASH_EDGES[e] for e in sorted(FLASH_EDGES)
+    if e not in FLASH_MASKED_ROWS], ids=str)
+def test_ref_flash_prefill_matches_reference_oracle(case, dtype):
+    """The port's plain version against ``repro.kernels.ref``'s on every
+    case in which each query row sees at least one key."""
+    if len(case) == 8:
+        B, Hq, Hkv, S, T, D, window, softcap = case
+        causal = True
+    else:
+        B, Hq, Hkv, S, T, D, causal, window, softcap = case
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _flash_inputs(B, Hq, Hkv, S, T, D, seed=3)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ref_flash_prefill(*(torch.tensor(a).to(tdt) for a in arrays), **kw)
+    want = jax_ref_flash_prefill(*(jnp.asarray(a, jdt) for a in arrays), **kw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def test_ref_flash_prefill_row_blocks_do_not_change_result(monkeypatch):
+    """The plain version's blocks of query rows (which bound its scores'
+    memory at full width) give the unblocked result bit for bit."""
+    import repro_torch.kernels.ref as ref_mod
+    arrays = [torch.tensor(a) for a in _flash_inputs(2, 4, 2, 75, 90, 32)]
+    kw = dict(window=20, softcap=10.0)
+    whole = ref_flash_prefill(*arrays, **kw)
+    monkeypatch.setattr(ref_mod, "_FLASH_REF_BLOCK", 2 * 4 * 90 * 7)
+    np.testing.assert_array_equal(ref_flash_prefill(*arrays, **kw).numpy(),
+                                  whole.numpy())
+
+
+#: narrow copies of the full-width dense shapes the card holds the bf16
+#: kernel to ``MAIN_SHAPE_FLASH_BF16_TOL`` at: Llama-3.1-8B's heads (32/8,
+#: D 128, causal) and Gemma-2-27B's (32/16, D 128, window, softcap 50), the
+#: sequence cut to 256 and the window to 64. Gemma's queries are scaled by 8
+#: (scores of std ~8) so that the cap bends the largest scores, as in
+#: chip_smoke.py.
+FLASH_TOL_SHAPES = {"llama": (32, 8, 256, 0, 0.0, 1.0),
+                    "gemma": (32, 16, 256, 64, 50.0, 8.0)}
+
+
+@pytest.mark.parametrize("shape,fault", [
+    ("llama", "faithful"), ("llama", "one_key_too_far"),
+    ("llama", "wrong_kv_head"),
+    ("gemma", "faithful"), ("gemma", "window_one_too_wide"),
+    ("gemma", "one_key_too_far"), ("gemma", "wrong_kv_head"),
+    ("gemma", "softcap_skipped")])
+def test_main_shape_flash_bf16_tolerance_separates_faults(shape, fault):
+    """``MAIN_SHAPE_FLASH_BF16_TOL`` passes a result rounded through another
+    path (fp64) and fails: the window one key too wide; the causal boundary
+    one key too far (each query at the position after its own); the first
+    query group reading the second kv head; the softcap skipped."""
+    Hq, Hkv, S, window, softcap, qscale = FLASH_TOL_SHAPES[shape]
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.standard_normal((1, Hq, S, 128), np.float32)
+                     * qscale).bfloat16()
+    k, v = (torch.tensor(rng.standard_normal((1, Hkv, S, 128), np.float32))
+            .bfloat16() for _ in range(2))
+    kw = dict(window=window, softcap=softcap)
+    want = ref_flash_prefill(q, k, v, **kw).float()
+    if fault == "faithful":
+        got = ref_flash_prefill(q.double(), k.double(), v.double(), **kw)
+    elif fault == "window_one_too_wide":
+        got = ref_flash_prefill(q, k, v, window=window + 1, softcap=softcap)
+    elif fault == "one_key_too_far":
+        shifted = torch.cat([torch.zeros_like(q[:, :, :1]), q], dim=2)
+        got = ref_flash_prefill(shifted, k, v, **kw)[:, :, 1:]
+    elif fault == "wrong_kv_head":
+        k2, v2 = k.clone(), v.clone()
+        k2[:, 0], v2[:, 0] = k[:, 1], v[:, 1]
+        got = ref_flash_prefill(q, k2, v2, **kw)
+    else:
+        got = ref_flash_prefill(q, k, v, window=window)
+    got = got.bfloat16().float()
+    close = torch.allclose(got, want, **MAIN_SHAPE_FLASH_BF16_TOL)
+    assert close == (fault == "faithful"), (fault, (got - want).abs().max())
