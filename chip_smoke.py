@@ -8,12 +8,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      sources built with nvcc for sm_90a, one process each, with ptxas'
      register/shared-memory/spill report;
   2. each Hopper kernel against its plain PyTorch version: the reference's
-     kernel-test cases (plus head_dim 16, the toy configs') and the main
-     path's shapes (bf16 there held to ``kernels.ref.MAIN_SHAPE_BF16_TOL``
+     kernel-test cases (plus head_dim 16, the toy configs', and a query
+     group of 16 at head_dim 256), chatglm3-6b's heads (group 16) at decode
+     and chunk shapes for both paged kernels in fp32 (2e-5) and bf16, and
+     the main path's shapes (bf16 held to ``kernels.ref.MAIN_SHAPE_BF16_TOL``
      and ``MAIN_SHAPE_PREFILL_BF16_TOL``), with CUDA-event times of the
-     kernel alone, the plain version and a library yardstick, and the bound.
-     Dense ``flash_prefill``: the reference's cases and the edges its tests
-     leave out (rows with no visible key exactly 0, S != T, windows of 1
+     kernel alone, the plain version and a library yardstick, and the
+     bound. Dense ``flash_prefill``: the reference's cases and the edges its
+     tests leave out (rows with no visible key exactly 0, S != T, windows of 1
      and past T, group 16, head_dim 256), then, through
      ``repro_torch.kernels.flash_attention``, Llama-3.1-8B's heads at
      S = T = 1000 and 8192 (causal) and Gemma-2-27B's at 8192 (window 4096,
@@ -45,7 +47,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      agree with phase 4 is printed, not asserted;
   6. the same two paths at full width in fp32, depth cut to 4 layers, same
      traffic: greedy tokens identical and context K/V within
-     ``FP32_KV_REL`` per layer.
+     ``FP32_KV_REL`` per layer;
+  7. device times: at the chunk shapes the kernels finish faster than the
+     Python wrapper launches them, so back-to-back CUDA-event times measure
+     the host. torch.profiler's records give the device time of the two
+     attention kernels redesigned for the tensor cores (and of SDPA beside
+     the paged one) at the main shapes. Last, because the profiler leaves
+     CUPTI active in the process and slows every later launch, which would
+     move phases 3-6's host-bound times.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -91,6 +100,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, iters: int = 20, tries: int = 3):
+    """Device time per call of the kernels ``fn`` launches, from
+    torch.profiler's CUDA activity records: the sum of their durations over
+    ``iters`` calls, divided by ``iters``. Unlike ``cuda_ms`` it leaves out
+    the gaps in which the card waits for the host to launch, which decide
+    back-to-back event times when a kernel is shorter than its wrapper. A
+    trace that comes back without device records (it happens) is taken
+    again, up to ``tries`` times; then the result is None, not measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA]
+        if us:
+            return sum(us) / iters / 1e3
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 # ======================================================================
 # phase 1
 
@@ -119,7 +158,12 @@ PAGED_CASES = [
     (2, 8, 1, 64, 16, 16, 64),
     (4, 2, 2, 32, 8, 4, 20),
     (4, 2, 1, 16, 8, 4, 20),           # head_dim 16 (the toy configs)
+    (2, 16, 1, 256, 16, 4, 12),        # group 16 at head_dim 256
 ]
+# chatglm3-6b's heads (src/repro/configs/chatglm3_6b.py: 32 query heads over
+# 2 kv heads, a query group of 16, head_dim 128), page 16: paged-eligible in
+# the reference, and taken by both paged kernels
+CHATGLM = dict(Hq=32, Hkv=2, D=128, page=16)
 PREFILL_CASES = [
     # B, Hq, Hkv, D, page, npages, pool, S  (tests/test_kernels.py)
     (2, 4, 2, 64, 8, 4, 16, 5),        # chunk boundary mid-page
@@ -129,6 +173,7 @@ PREFILL_CASES = [
     (2, 4, 2, 64, 8, 4, 12, 6),        # the reference's softcap case
     (3, 2, 1, 16, 8, 6, 24, 11),       # head_dim 16 (the toy configs)
     (2, 16, 2, 128, 16, 16, 64, 37),   # group 8, many row and key tiles
+    (2, 16, 1, 256, 16, 8, 24, 37),    # group 16 at head_dim 256
 ]
 # the chunked main path's chunk forwards (phase 5), B, S, start: the shared
 # 1000-token context in 200-token chunks (starts mid-page), then each turn's
@@ -178,6 +223,26 @@ def phase_kernels(card):
                                            atol=tol[dtype], rtol=tol[dtype])
                 log(f"[paged_decode] case {case} {dtype} softcap {cap}: "
                     f"max|err| {err:.3e} (tol {tol[dtype]})")
+
+    # --- paged_decode at chatglm3-6b's heads, 1k-4k tokens
+    c = CHATGLM
+    lengths = torch.tensor(np.random.default_rng(1).integers(1024, 4097, 4),
+                           dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for cap in (0.0, 30.0):
+            args = decode_inputs(4, c["Hq"], c["Hkv"], c["D"], c["page"], 256,
+                                 1025, dtype, lengths)
+            got = paged_decode_attention(*args, softcap=cap)
+            want = ref_paged_decode(*args, softcap=cap)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            t = (MAIN_SHAPE_BF16_TOL if dtype == torch.bfloat16
+                 else {"atol": 2e-5, "rtol": 2e-5})
+            torch.testing.assert_close(got.float(), want.float(), **t)
+            log(f"[paged_decode] chatglm3-6b heads B=4 Hq={c['Hq']} "
+                f"Hkv={c['Hkv']} (group 16) D={c['D']} page {c['page']} "
+                f"{dtype} softcap {cap} lengths {lengths.tolist()}: "
+                f"max|err| {err:.3e} (tol {t})")
 
     # --- paged_decode at the main path's shape
     B, Hq, Hkv, D, page, P = 8, 32, 8, 128, 16, 2049
@@ -323,16 +388,32 @@ def prefill_bound_ms(start, S, Hq, Hkv, D, page, npages, itemsize) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def chunk_table(B, S, st0, page, P, seed):
+    """Block tables (B, npages) of B chunks of S tokens at start st0 in the
+    engine's layout: as wide as the scheduler buckets them (the next power
+    of two of the pages in use), distinct random pages, sentinel page 0 past
+    the sequence."""
+    import numpy as np
+
+    from repro_torch.serving.decode import next_pow2
+    perm = np.random.default_rng(seed).permutation(np.arange(1, P))
+    live = -(-(st0 + S) // page)
+    bt = np.zeros((B, next_pow2(live)), np.int64)
+    for b in range(B):
+        bt[b, :live] = perm[b * live:(b + 1) * live]
+    return bt
+
+
 def phase_prefill_kernel(card):
     """flash_prefill_paged against ref_paged_prefill on the card."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.flash_prefill_paged import (choose_splits,
+                                                         flash_prefill_paged)
     from repro_torch.kernels.ref import (MAIN_SHAPE_PREFILL_BF16_TOL,
                                          ref_paged_prefill)
-    from repro_torch.serving.decode import next_pow2
 
     dev = torch.device("cuda")
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -367,19 +448,36 @@ def phase_prefill_kernel(card):
                     f"{cap} start {args[4].tolist()}: max|err| {err:.3e} "
                     f"(tol {tol[dtype]})")
 
-    # the chunked main path's shapes (MAIN_CHUNKS); each table as wide as
-    # the scheduler buckets it, the next power of two of the pages in use
-    # (pages past the sequence are sentinel page 0)
+    # chatglm3-6b's heads (group 16) at the main path's chunk shapes, both
+    # types; bf16 held to MAIN_SHAPE_PREFILL_BF16_TOL, fp32 to 2e-5
+    c = CHATGLM
+    for B, S, st0 in ((1, 200, 800), (4, 40, 992)):
+        bt = chunk_table(B, S, st0, c["page"], 1025, 6)
+        for dtype in (torch.float32, torch.bfloat16):
+            for cap in (0.0, 30.0):
+                args = inputs(B, c["Hq"], c["Hkv"], c["D"], c["page"],
+                              bt.shape[1], 1025, S, dtype, [st0] * B, bt)
+                got = flash_prefill_paged(*args, softcap=cap)
+                want = ref_paged_prefill(*args, softcap=cap)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                t = (MAIN_SHAPE_PREFILL_BF16_TOL if dtype == torch.bfloat16
+                     else {"atol": 2e-5, "rtol": 2e-5})
+                torch.testing.assert_close(got.float(), want.float(), **t)
+                log(f"[flash_prefill_paged] chatglm3-6b heads B={B} S={S} "
+                    f"start {st0} Hq={c['Hq']} Hkv={c['Hkv']} (group 16) "
+                    f"D={c['D']} page {c['page']} {dtype} softcap {cap}: "
+                    f"max|err| {err:.3e} (tol {t})")
+
+    # the chunked main path's shapes (MAIN_CHUNKS)
     Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
-    perm = np.random.default_rng(4).permutation(np.arange(1, P))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     perf = None
     for B, S, st0 in MAIN_CHUNKS:
         start = [st0] * B
-        live = -(-(st0 + S) // page)
-        npages = next_pow2(live)
-        bt = np.zeros((B, npages), np.int64)
-        for b in range(B):
-            bt[b, :live] = perm[b * live:(b + 1) * live]
+        bt = chunk_table(B, S, st0, page, P, 4)
+        npages = bt.shape[1]
+        splits = choose_splits(B, S, Hq, Hkv, npages * page, sms)
         q, kp, vp, btd, std = inputs(B, Hq, Hkv, D, page, npages, P, S,
                                      torch.bfloat16, start, bt)
         got = flash_prefill_paged(q, kp, vp, btd, std)
@@ -418,11 +516,13 @@ def phase_prefill_kernel(card):
                                                     page, npages, 2)
         log(f"[flash_prefill_paged] main shape B={B} S={S} start "
             f"{start[0]} Hq={Hq} Hkv={Hkv} D={D} page={page} npages="
-            f"{npages} bf16: max|err| {err:.3e}, relative norm {rel:.3e} "
+            f"{npages} bf16, {splits} key part(s) on {sms} SMs: max|err| "
+            f"{err:.3e}, relative norm {rel:.3e} "
             f"(tol {MAIN_SHAPE_PREFILL_BF16_TOL}); kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, sdpa on pre-gathered dense K/V (gather "
             f"excluded) {lib_ms:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({nbytes} B, {flops} flop) on {card}")
+            f"({nbytes} B, {flops} flop; {flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{bound / ms:.3f} of the bound) on {card}")
         if start[0] == 800:             # the heaviest context chunk
             perf = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=bound, bound_by=by, library_ms=lib_ms)
@@ -576,8 +676,8 @@ def phase_flash_kernel(card):
             f"scale {qs}, via kernels.flash_attention: max|err| {err:.3e}, "
             f"relative norm {rel:.3e} (tol {tol_used}); kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, {lib_txt}, bound {bound:.4f} ms by {by} "
-            f"({nbytes} B, {flops} flop; {flops / ms / 1e9:.2f} TFLOP/s) on "
-            f"{card}")
+            f"({nbytes} B, {flops} flop; {flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{bound / ms:.3f} of the bound) on {card}")
         if name == "a":
             perf = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=bound, bound_by=by, library_ms=lib_ms)
@@ -1012,6 +1112,64 @@ def phase_fp32_parity(card, n_layers: int):
 
 
 # ======================================================================
+# phase 7
+
+
+def phase_device_times(card):
+    """Device time (``device_ms``) of the tensor-core kernels at the main
+    shapes: ``flash_prefill_paged`` at every MAIN_CHUNKS forward beside
+    SDPA on pre-gathered dense K/V, dense ``flash_prefill`` at FLASH_MAIN's
+    bf16 shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
+    G = Hq // Hkv
+    for B, S, st0 in MAIN_CHUNKS:
+        bt = torch.tensor(chunk_table(B, S, st0, page, P, 4),
+                          dtype=torch.int32, device=dev)
+        T = bt.shape[1] * page
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+        kp, vp = (torch.randn((P, page, Hkv, D), generator=g,
+                              device=dev).bfloat16() for _ in range(2))
+        start = torch.full((B,), st0, dtype=torch.int32, device=dev)
+        ms = device_ms(lambda: flash_prefill_paged(q, kp, vp, bt, start))
+        kd, vd = (x[bt.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3)
+                  .contiguous() for x in (kp, vp))
+        qd = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(
+            B, Hkv, G * S, D).contiguous()
+        qpos = (start[:, None] + torch.arange(S, device=dev)[None]).repeat(
+            1, G)
+        mask = (torch.arange(T, device=dev)[None, None]
+                <= qpos[:, :, None])[:, None]
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        log(f"[device time] flash_prefill_paged B={B} S={S} start {st0} "
+            f"bf16: kernel {fmt_ms(ms)}, sdpa on pre-gathered dense K/V "
+            f"{fmt_ms(lib)} (torch.profiler, mean of 20 calls) on {card}")
+        del q, kp, vp, kd, vd, qd, mask
+    for name, B, Hq, Hkv, S, T, D, dt, window, cap, qs in FLASH_MAIN:
+        if dt != "bfloat16":
+            continue
+        q = (torch.randn((B, S, Hq, D), generator=g, device=dev)
+             * qs).bfloat16()
+        k, v = (torch.randn((B, T, Hkv, D), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        ms = device_ms(lambda: kernels.flash_attention(
+            q, k, v, window=window, softcap=cap), iters=5 if S > 4096 else 20)
+        log(f"[device time] flash_prefill shape ({name}) S={S} T={T} "
+            f"Hq={Hq} Hkv={Hkv} window {window} softcap {cap} bf16: kernel "
+            f"{fmt_ms(ms)} (torch.profiler) on {card}")
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+# ======================================================================
 
 
 def main() -> int:
@@ -1043,6 +1201,7 @@ def main() -> int:
     chunked_launches = phase_chunked(card, eager)
     del eager
     phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
+    phase_device_times(card)
 
     # each kernel with its launches on the path that runs it: the eager
     # main path (phase 4) for paged_decode and paged_write, the kernel API

@@ -10,13 +10,15 @@
 //
 // Layout: one thread block of 128 threads per (b, kv_head). The block
 // loads its own block-table entries and length (the Pallas version had them
-// in scalar prefetch) and packs the whole query group (G = Hq / Hkv rows)
-// together, so every K/V row is read from device memory once per group, as
-// on the TPU. A loop over tiles of 128 tokens replaces the sequential
-// Pallas grid axis over pages; the loop ends at the sequence's length, so
-// pages past it (padded block-table columns point at sentinel page 0) are
-// never touched. One token's row for one head sits at stride Hkv * D inside
-// a page; a tile may span several pages.
+// in scalar prefetch) and packs the whole query group (G = Hq / Hkv rows, up
+// to 16) together, so every K/V row is read from device memory once per
+// group, as on the TPU. The kernel is instantiated for a group bucket GB of
+// 8 or 16, so a group of 8 or less (Llama's 4) keeps the registers of GB = 8,
+// and for head_dim 16, 32, 64, 128 and 256. A loop over tiles of 128 tokens
+// replaces the sequential Pallas grid axis over pages; the loop ends at the
+// sequence's length, so pages past it (padded block-table columns point at
+// sentinel page 0) are never touched. One token's row for one head sits at
+// stride Hkv * D inside a page; a tile may span several pages.
 //
 // Per tile: (1) each thread scores one token: it looks up the token's page,
 // reads the K row with 16-byte loads and takes the G dot products against
@@ -43,7 +45,7 @@ namespace {
 
 constexpr int NT = 128;          // threads per block = tokens per tile
 constexpr int NW = NT / 32;      // warps per block
-constexpr int MAXG = 8;          // query heads per kv head
+constexpr int MAXG = 16;         // query heads per kv head
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -75,7 +77,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
   }
 }
 
-template <typename T, int D>
+// GB: the group bucket (G <= GB). Static shared memory at GB = 16, D = 256:
+// 16 KB each for q_s and acc_s, 8 KB for p_s, within the 48 KB limit.
+template <typename T, int D, int GB>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ block_tables,
@@ -84,11 +88,11 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int TPR = D / EPV;          // threads per V row in p @ V
   constexpr int RPI = NT / TPR;         // V rows read at once (row slots)
-  __shared__ float q_s[MAXG][D];
-  __shared__ float p_s[MAXG][NT];
+  __shared__ float q_s[GB][D];
+  __shared__ float p_s[GB][NT];
   __shared__ long long off_s[NT];       // row offset of each tile token
-  __shared__ float m_s[MAXG], l_s[MAXG], c_s[MAXG];
-  __shared__ float acc_s[MAXG][D];
+  __shared__ float m_s[GB], l_s[GB], c_s[GB];
+  __shared__ float acc_s[GB][D];
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -106,10 +110,10 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     m_s[tid] = NEG;
     l_s[tid] = 0.f;
   }
-  for (int i = tid; i < MAXG * D; i += NT) acc_s[i / D][i % D] = 0.f;
-  float acc[MAXG][EPV];
+  for (int i = tid; i < GB * D; i += NT) acc_s[i / D][i % D] = 0.f;
+  float acc[GB][EPV];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
+  for (int g = 0; g < GB; ++g)
 #pragma unroll
     for (int e = 0; e < EPV; ++e) acc[g][e] = 0.f;
   __syncthreads();
@@ -123,9 +127,9 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   for (int t0 = 0; t0 < len; t0 += NT) {
     // (1) scores: one token per thread
     const int t = t0 + tid;
-    float s[MAXG];
+    float s[GB];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
+    for (int g = 0; g < GB; ++g) s[g] = 0.f;
     if (t < len) {
       const int j = t / page;
       const long long off =
@@ -137,7 +141,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
         float f[EPV];
         load16(kr + e, f);
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
+        for (int g = 0; g < GB; ++g) {
           if (g < G) {
 #pragma unroll
             for (int i = 0; i < EPV; ++i) s[g] += q_s[g][e + i] * f[i];
@@ -146,7 +150,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       }
     }
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
+    for (int g = 0; g < GB; ++g) {
       if (g < G) {
         float v = s[g];
         if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
@@ -191,7 +195,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 
     // (3) p @ V: rows slot, slot + RPI, ...; columns col .. col + EPV
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
+    for (int g = 0; g < GB; ++g) {
       if (g < G) {
         const float c = c_s[g];
 #pragma unroll
@@ -204,7 +208,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       float f[EPV];
       load16(v_pages + off_s[i] + col, f);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
+      for (int g = 0; g < GB; ++g) {
         if (g < G) {
           const float p = p_s[g][i];
 #pragma unroll
@@ -219,7 +223,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   for (int r = 0; r < RPI; ++r) {
     if (slot == r) {
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)  // unrolled: acc stays in registers
+      for (int g = 0; g < GB; ++g)  // unrolled: acc stays in registers
         if (g < G)
 #pragma unroll
           for (int e = 0; e < EPV; ++e) acc_s[g][col + e] += acc[g][e];
@@ -233,6 +237,27 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
 }
 
+template <typename T, int GB>
+void launch_g(int D, dim3 grid, cudaStream_t st, const T* q, const T* kp,
+              const T* vp, const int* bt, const int* ln, T* out, int Hkv,
+              int G, int page, int npages, float scale, float softcap) {
+  if (D == 16)
+    paged_decode_kernel<T, 16, GB><<<grid, NT, 0, st>>>(
+        q, kp, vp, bt, ln, out, Hkv, G, page, npages, scale, softcap);
+  else if (D == 32)
+    paged_decode_kernel<T, 32, GB><<<grid, NT, 0, st>>>(
+        q, kp, vp, bt, ln, out, Hkv, G, page, npages, scale, softcap);
+  else if (D == 64)
+    paged_decode_kernel<T, 64, GB><<<grid, NT, 0, st>>>(
+        q, kp, vp, bt, ln, out, Hkv, G, page, npages, scale, softcap);
+  else if (D == 128)
+    paged_decode_kernel<T, 128, GB><<<grid, NT, 0, st>>>(
+        q, kp, vp, bt, ln, out, Hkv, G, page, npages, scale, softcap);
+  else
+    paged_decode_kernel<T, 256, GB><<<grid, NT, 0, st>>>(
+        q, kp, vp, bt, ln, out, Hkv, G, page, npages, scale, softcap);
+}
+
 template <typename T>
 void launch(int D, dim3 grid, cudaStream_t st, const void* q,
             const void* kp, const void* vp, const void* bt, const void* ln,
@@ -244,18 +269,12 @@ void launch(int D, dim3 grid, cudaStream_t st, const void* q,
   const int* bb = (const int*)bt;
   const int* ll = (const int*)ln;
   T* oo = (T*)out;
-  if (D == 16)
-    paged_decode_kernel<T, 16><<<grid, NT, 0, st>>>(
-        qq, kk, vv, bb, ll, oo, Hkv, G, page, npages, scale, softcap);
-  else if (D == 32)
-    paged_decode_kernel<T, 32><<<grid, NT, 0, st>>>(
-        qq, kk, vv, bb, ll, oo, Hkv, G, page, npages, scale, softcap);
-  else if (D == 64)
-    paged_decode_kernel<T, 64><<<grid, NT, 0, st>>>(
-        qq, kk, vv, bb, ll, oo, Hkv, G, page, npages, scale, softcap);
+  if (G <= 8)
+    launch_g<T, 8>(D, grid, st, qq, kk, vv, bb, ll, oo, Hkv, G, page, npages,
+                   scale, softcap);
   else
-    paged_decode_kernel<T, 128><<<grid, NT, 0, st>>>(
-        qq, kk, vv, bb, ll, oo, Hkv, G, page, npages, scale, softcap);
+    launch_g<T, 16>(D, grid, st, qq, kk, vv, bb, ll, oo, Hkv, G, page,
+                    npages, scale, softcap);
 }
 
 }  // namespace
@@ -270,7 +289,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int npages, float scale, float softcap,
                                    int is_bf16, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || page <= 0 ||
-      (D != 16 && D != 32 && D != 64 && D != 128))
+      (D != 16 && D != 32 && D != 64 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   const int G = Hq / Hkv;

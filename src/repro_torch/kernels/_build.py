@@ -9,7 +9,8 @@ the repository root (a directory git ignores):
 
 That takes seconds per file, where ``torch.utils.cpp_extension.load`` takes
 minutes. ``build_all`` starts one ``nvcc`` per source, all at once. A library
-is rebuilt when its source is newer. Nothing here runs at import time.
+is rebuilt when its source, or any shared header ``csrc/*.cuh`` (which any
+source may include), is newer than it. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -43,8 +44,10 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names=None, force: bool = False) -> dict:

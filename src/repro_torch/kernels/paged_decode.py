@@ -5,6 +5,8 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_decode.py``
 its header note gives the design and what bounds it on the card. On a CUDA
 tensor the wrapper launches that kernel or raises; on a CPU tensor it runs
 the plain version in ``kernels/ref.py``. There is no fallback between them.
+Off the CPU, shapes and types are checked before the device, so each
+refusal names its cause.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ _SIGNATURE = {"paged_decode_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
               + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                  ctypes.c_void_p]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP = 8
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 16
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -36,8 +38,6 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if q.device.type == "cpu":
         return ref_paged_decode(q, k_pages, v_pages, block_tables, lengths,
                                 softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode: unsupported device {q.device}")
     B, Hq, D = q.shape
     P, page, Hkv, Dk = k_pages.shape
     npages = block_tables.shape[1]
@@ -53,6 +53,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if Hq % Hkv or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"paged_decode: Hq={Hq} Hkv={Hkv} (query group "
                          f"<= {MAX_GROUP})")
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: unsupported device {q.device}")
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode: all inputs must be on one device")

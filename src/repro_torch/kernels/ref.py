@@ -152,6 +152,24 @@ def ref_paged_prefill(q, k_pages, v_pages, block_tables, start, *,
     return o.reshape(B, S, Hq, D).to(q.dtype)
 
 
+def ref_merge_splits(o_parts, m_parts, l_parts):
+    """Combine the parts of a key range split for ``flash_prefill_paged``.
+
+    o_parts: (n, ..., D) fp32 unnormalised outputs (sum of exp(s - m) v over
+    a part's visible keys); m_parts, l_parts: (n, ...) the part's running
+    max (-1e30 where it saw no key) and denominator. Returns (..., D) fp32:
+    sum_p w_p o_p / sum_p w_p l_p with w_p = exp(m_p - max_p m_p), and 0
+    where that denominator is 0 (a row with no visible key in any part).
+    The plain version of ``csrc/flash_prefill_paged.cu:merge_splits_kernel``
+    (before its rounding to the output's dtype)."""
+    mx = m_parts.max(dim=0).values
+    w = torch.exp(m_parts - mx)
+    den = (w * l_parts).sum(dim=0)
+    num = (w[..., None] * o_parts).sum(dim=0)
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp_min(1e-30)[..., None], 0.0)
+
+
 def ref_paged_write(new_k, new_v, k_pages, v_pages, block_tables, n_valid):
     """Scatter new KV rows into their assigned pages, in place.
 

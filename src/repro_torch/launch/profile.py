@@ -34,8 +34,8 @@ def _kernel_class(name: str) -> str:
         return "paged_decode"
     if "paged_write" in n:
         return "paged_write"
-    if "flash_prefill_paged" in n:
-        return "flash_prefill_paged"
+    if "flash_prefill_paged" in n or "merge_splits" in n:
+        return "flash_prefill_paged"      # with its split's merge kernel
     if any(k in n for k in ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma",
                             "nvjet")):
         return "matmul"

@@ -5,7 +5,7 @@ tests/test_torch_gpu.py`` on a machine with an H100 (the kernels build with
 nvcc for sm_90a at first use). Elsewhere every test skips, decided inside a
 fixture so that every pytest worker collects the same tests. Tolerances are
 the reference kernel tests' (2e-5 fp32, 2e-2 bf16), except bf16 at the
-Llama-3.1-8B decode and chunk shapes, which are held to
+Llama-3.1-8B and chatglm3-6b decode and chunk shapes, which are held to
 ``MAIN_SHAPE_BF16_TOL`` and ``MAIN_SHAPE_PREFILL_BF16_TOL``, and at the
 full-width dense shapes (Llama-3.1-8B's and Gemma-2-27B's heads), held to
 ``MAIN_SHAPE_FLASH_BF16_TOL``; paged_write is exact. The toy engines run at
@@ -33,6 +33,9 @@ from repro_torch.serving import LocalDisaggEngine, SamplingParams
 pytestmark = pytest.mark.gpu
 
 LLAMA_DECODE = (8, 32, 8, 128, 16, 256, 2049)
+# chatglm3-6b's heads (src/repro/configs/chatglm3_6b.py: 32 query heads, 2
+# kv heads, so a query group of 16, head_dim 128), page 16, up to 4k tokens
+CHATGLM_DECODE = (4, 32, 2, 128, 16, 256, 1025)
 PAGED_CASES = [
     # B, Hq, Hkv, D, page, npages, pool
     (3, 8, 2, 64, 16, 8, 40),
@@ -41,8 +44,11 @@ PAGED_CASES = [
     (4, 2, 2, 32, 8, 4, 20),
     (5, 16, 2, 128, 128, 3, 9),        # pages longer than a 128-token tile
     (4, 2, 1, 16, 8, 4, 20),           # head_dim 16 (the toy configs)
+    (2, 16, 1, 256, 16, 4, 12),        # group 16 at head_dim 256
     LLAMA_DECODE,                      # Llama-3.1-8B decode shape
+    CHATGLM_DECODE,                    # chatglm3-6b's heads
 ]
+MAIN_DECODE = (LLAMA_DECODE, CHATGLM_DECODE)
 # B, Hq, Hkv, D, page, npages, pool, S, start (None: random); the chunked
 # main path's chunk forwards, each table as wide as the scheduler buckets it
 # (next power of two of the pages in use): the shared context's 200-token
@@ -51,7 +57,13 @@ LLAMA_CHUNKS = [(1, 32, 8, 128, 16, 16, 2049, 200, 0),
                 (1, 32, 8, 128, 16, 32, 2049, 200, 200),
                 (1, 32, 8, 128, 16, 64, 2049, 200, 800),
                 (4, 32, 8, 128, 16, 128, 2049, 40, 992),
-                (4, 32, 8, 128, 16, 128, 2049, 72, 992)]
+                (4, 32, 8, 128, 16, 128, 2049, 72, 992),
+                # one request's tail alone (profile.py's traced chunk)
+                (1, 32, 8, 128, 16, 128, 2049, 40, 992)]
+# chatglm3-6b's heads (group 16) at the same chunk shapes
+CHATGLM_CHUNKS = [(1, 32, 2, 128, 16, 64, 1025, 200, 800),
+                  (4, 32, 2, 128, 16, 128, 1025, 40, 992)]
+MAIN_CHUNK_CASES = LLAMA_CHUNKS + CHATGLM_CHUNKS
 PREFILL_CASES = [
     (2, 4, 2, 64, 8, 4, 16, 5, None),      # tests/test_kernels.py cases
     (1, 8, 1, 32, 16, 3, 8, 16, None),
@@ -61,7 +73,9 @@ PREFILL_CASES = [
     (3, 2, 1, 16, 8, 6, 24, 11, None),     # head_dim 16 (the toy configs)
     (2, 16, 2, 128, 16, 16, 64, 37, None),  # group 8, many row/key tiles
     (2, 4, 1, 32, 16, 16, 64, 130, 0),     # start 0, S > one key tile
-    *LLAMA_CHUNKS,                          # the chunked main path's shapes
+    (2, 16, 1, 256, 16, 8, 24, 37, None),  # group 16 at head_dim 256
+    (2, 8, 2, 64, 8, 12, 40, 70, None),    # head_dim 64, page 8
+    *MAIN_CHUNK_CASES,                      # the chunked main path's shapes
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -94,7 +108,7 @@ def test_paged_decode_kernel_matches_plain(card, case, dtype, softcap):
     assert paged_decode_attention.launches == before + 1
     want = ref_paged_decode(q, kp, vp, bt, ln, softcap=softcap)
     tol = {"atol": TOL[dtype], "rtol": TOL[dtype]}
-    if case == LLAMA_DECODE and dtype == torch.bfloat16:
+    if case in MAIN_DECODE and dtype == torch.bfloat16:
         tol = MAIN_SHAPE_BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
@@ -125,10 +139,7 @@ def test_paged_write_kernel_bitwise(card, case, dtype):
     assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
 
 
-@pytest.mark.parametrize("softcap", [0.0, 30.0])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("case", PREFILL_CASES, ids=str)
-def test_flash_prefill_paged_kernel_matches_plain(card, case, dtype, softcap):
+def _prefill_inputs(card, case, dtype):
     B, Hq, Hkv, D, page, npages, P, S, st0 = case
     g = torch.Generator(device=card).manual_seed(0)
     q = torch.randn((B, S, Hq, D), generator=g, device=card).to(dtype)
@@ -146,14 +157,52 @@ def test_flash_prefill_paged_kernel_matches_plain(card, case, dtype, softcap):
         st = np.full(B, st0)
     bt = torch.tensor(bt, dtype=torch.int32, device=card)
     st = torch.tensor(st, dtype=torch.int32, device=card)
+    return q, kp, vp, bt, st
+
+
+def _prefill_tol(case, dtype):
+    if case in MAIN_CHUNK_CASES and dtype == torch.bfloat16:
+        return MAIN_SHAPE_PREFILL_BF16_TOL
+    return {"atol": TOL[dtype], "rtol": TOL[dtype]}
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=str)
+def test_flash_prefill_paged_kernel_matches_plain(card, case, dtype, softcap):
+    args = _prefill_inputs(card, case, dtype)
     before = flash_prefill_paged.launches
-    got = flash_prefill_paged(q, kp, vp, bt, st, softcap=softcap)
+    got = flash_prefill_paged(*args, softcap=softcap)
     torch.cuda.synchronize()
     assert flash_prefill_paged.launches == before + 1
-    want = ref_paged_prefill(q, kp, vp, bt, st, softcap=softcap)
-    tol = {"atol": TOL[dtype], "rtol": TOL[dtype]}
-    if case in LLAMA_CHUNKS and dtype == torch.bfloat16:
-        tol = MAIN_SHAPE_PREFILL_BF16_TOL
+    want = ref_paged_prefill(*args, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_prefill_tol(case, dtype))
+
+
+@pytest.mark.parametrize("splits", [2, 3, 7])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("case", [
+    (2, 4, 2, 64, 8, 4, 16, 5, None),      # fewer key tiles than parts
+    (2, 16, 1, 256, 16, 8, 24, 37, None),  # group 16 at head_dim 256
+    (2, 16, 2, 128, 16, 16, 64, 37, None),
+    (1, 32, 8, 128, 16, 64, 2049, 200, 800),
+    (4, 32, 8, 128, 16, 128, 2049, 40, 992),
+], ids=str)
+def test_flash_prefill_paged_split_matches_unsplit(card, case, softcap,
+                                                   splits):
+    """The bf16 tensor-core kernel with each row tile's keys split into 2, 3
+    or 7 parts and merged, against the same kernel unsplit and against the
+    plain version (one launch counted per call either way)."""
+    args = _prefill_inputs(card, case, torch.bfloat16)
+    whole = flash_prefill_paged(*args, softcap=softcap, splits=1)
+    before = flash_prefill_paged.launches
+    got = flash_prefill_paged(*args, softcap=softcap, splits=splits)
+    torch.cuda.synchronize()
+    assert flash_prefill_paged.launches == before + 1
+    want = ref_paged_prefill(*args, softcap=softcap)
+    tol = _prefill_tol(case, torch.bfloat16)
+    torch.testing.assert_close(got.float(), whole.float(), **tol)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 

@@ -26,15 +26,18 @@ from repro.kernels.ref import ref_flash_prefill as jax_ref_flash_prefill
 from repro.kernels.ref import ref_paged_decode as jax_ref_paged_decode
 from repro.kernels.ref import ref_paged_prefill as jax_ref_paged_prefill
 from repro_torch.kernels.flash_prefill import flash_prefill
-from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_prefill_paged import (KEY_TILE, MAX_SPLITS,
+                                                     ROW_TILE, choose_splits,
+                                                     flash_prefill_paged)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.kernels.paged_write import paged_write
 from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
                                      MAIN_SHAPE_FLASH_BF16_TOL,
                                      MAIN_SHAPE_PREFILL_BF16_TOL,
-                                     ref_flash_prefill, ref_paged_decode,
-                                     ref_paged_prefill)
+                                     ref_flash_prefill, ref_merge_splits,
+                                     ref_paged_decode, ref_paged_prefill)
 
 # B, Hq, Hkv, D, page, npages, pool  (tests/test_kernels.py PAGED_CASES)
 PAGED_CASES = [
@@ -42,6 +45,8 @@ PAGED_CASES = [
     (1, 4, 4, 128, 32, 4, 16),
     (2, 8, 1, 64, 16, 16, 64),
     (4, 2, 2, 32, 8, 4, 20),
+    (2, 32, 2, 128, 16, 8, 20),      # chatglm3-6b's heads: group 16
+    (2, 16, 1, 256, 16, 4, 12),      # group 16 at head_dim 256
 ]
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -88,6 +93,8 @@ PAGED_PREFILL_CASES = [
     (1, 8, 1, 32, 16, 3, 8, 16),     # MQA, chunk == page
     (3, 2, 2, 64, 8, 6, 32, 7),      # MHA, ragged starts
     (1, 4, 2, 128, 16, 2, 8, 1),     # degenerate single-token chunk
+    (1, 32, 2, 128, 16, 4, 12, 20),  # chatglm3-6b's heads: group 16
+    (2, 16, 1, 256, 16, 3, 10, 9),   # group 16 at head_dim 256
 ]
 
 
@@ -323,6 +330,305 @@ def test_flash_wrappers_refuse_what_the_kernel_does_not_take(entry, spec):
         else:
             flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             k.transpose(1, 2))
+
+
+def test_build_rebuilds_every_kernel_when_a_shared_header_changes(
+        tmp_path, monkeypatch):
+    """``_build._stale`` counts every ``csrc/*.cuh`` as a source of every
+    kernel: touching a shared header makes both libraries stale, touching
+    one ``.cu`` only its own."""
+    import os
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    for name in ("one.cu", "two.cu", "tile.cuh"):
+        (csrc / name).write_text("//\n")
+        os.utime(csrc / name, (100, 100))
+    for lib in ("libone.so", "libtwo.so"):
+        (out / lib).write_text("")
+        os.utime(out / lib, (200, 200))
+    assert not _build._stale("one") and not _build._stale("two")
+    os.utime(csrc / "one.cu", (300, 300))
+    assert _build._stale("one") and not _build._stale("two")
+    os.utime(out / "libone.so", (400, 400))
+    os.utime(csrc / "tile.cuh", (500, 500))
+    assert _build._stale("one") and _build._stale("two")
+
+
+@pytest.mark.parametrize("spec", ["head_dim48", "group32"])
+@pytest.mark.parametrize("entry", ["paged_decode", "flash_prefill_paged"])
+def test_paged_wrappers_refuse_what_the_kernel_does_not_take(entry, spec):
+    """Off the CPU, the paged wrappers refuse head_dim 48 and a query group
+    above 16 (32 query heads over one kv head) by name, before they look at
+    the device (meta tensors here); group 16 and head_dim 256 pass the shape
+    checks and reach the device check."""
+    hq, d = (4, 48) if spec == "head_dim48" else (32, 32)
+    kp = torch.zeros((4, 8, 1, d), device="meta")
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    match = "head_dim 48" if spec == "head_dim48" else "query group"
+    q = torch.zeros((1, hq, d), device="meta")
+    with pytest.raises(ValueError, match=match):
+        if entry == "paged_decode":
+            paged_decode_attention(q, kp, kp, bt, bt[:, 0])
+        else:
+            flash_prefill_paged(q[:, None], kp, kp, bt, bt[:, 0])
+    q = torch.zeros((1, 16, 256), device="meta")
+    kp = torch.zeros((4, 8, 1, 256), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if entry == "paged_decode":
+            paged_decode_attention(q, kp, kp, bt, bt[:, 0])
+        else:
+            flash_prefill_paged(q[:, None], kp, kp, bt, bt[:, 0])
+
+
+# ----------------------------------------------------------------------
+# the split over keys of the tensor-core flash_prefill_paged
+
+def _partial_paged_prefill(q, k_pages, v_pages, block_tables, start, lo, hi,
+                           softcap=0.0):
+    """One part of a split key range: the unnormalised output, max and
+    denominator of ``ref_paged_prefill`` over keys [lo, hi) only, (B, S, Hq,
+    D) and (B, S, Hq), fp32; a row with no visible key there gets max -1e30,
+    denominator 0 and output 0 (what the kernel's part writes)."""
+    B, S, Hq, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    npages = block_tables.shape[1]
+    g, T = Hq // Hkv, npages * page
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, T, Hkv, D).float()
+    v = v_pages[bt].reshape(B, T, Hkv, D).float()
+    qg = (q.float() * D ** -0.5).reshape(B, S, Hkv, g, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = start[:, None] + torch.arange(S, dtype=torch.int32)[None]
+    kpos = torch.arange(T, dtype=torch.int32)
+    mask = ((kpos[None, None, :] <= qpos[:, :, None])
+            & (kpos >= lo) & (kpos < hi))[:, None, None]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, S, Hq, D)
+    return (o, m.permute(0, 3, 1, 2).reshape(B, S, Hq),
+            p.sum(dim=-1).permute(0, 3, 1, 2).reshape(B, S, Hq))
+
+
+def _split_parts(args, n, softcap=0.0):
+    T = args[3].shape[1] * args[1].shape[1]
+    bounds = [round(i * T / n) for i in range(n + 1)]
+    parts = [_partial_paged_prefill(*args, lo, hi, softcap=softcap)
+             for lo, hi in zip(bounds, bounds[1:])]
+    return [torch.stack(x) for x in zip(*parts)]
+
+
+#: narrow copies (Hq 8, Hkv 2) of the chunked main path's chunk forwards
+#: (chip_smoke.MAIN_CHUNKS: 200-token chunks, the four 40- and 72-token
+#: tails past 992 cached tokens), each table as wide as the scheduler
+#: buckets it; B, Hq, Hkv, D, page, npages, pool, S, start
+NARROW_CHUNKS = [(1, 8, 2, 128, 16, 16, 300, 200, 0),
+                 (1, 8, 2, 128, 16, 64, 300, 200, 800),
+                 (4, 8, 2, 128, 16, 128, 300, 40, 992),
+                 (4, 8, 2, 128, 16, 128, 300, 72, 992)]
+
+
+def _narrow_chunk_inputs(case, dtype=torch.float32, seed=0):
+    B, Hq, Hkv, D, page, npages, P, S, st0 = case
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(rng.standard_normal((B, S, Hq, D), np.float32))
+    kp, vp = (torch.tensor(rng.standard_normal((P, page, Hkv, D),
+                                               np.float32))
+              for _ in range(2))
+    live = -(-(st0 + S) // page)
+    bt = torch.zeros((B, npages), dtype=torch.int32)
+    bt[:, :live] = torch.tensor(
+        rng.permutation(np.arange(1, P))[:B * live].reshape(B, live))
+    start = torch.full((B,), st0, dtype=torch.int32)
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), bt, start
+
+
+@pytest.mark.parametrize("n", [2, 3, 7])
+@pytest.mark.parametrize("case", PAGED_PREFILL_CASES + NARROW_CHUNKS,
+                         ids=str)
+def test_split_key_ranges_merge_to_the_unsplit_plain_version(case, n):
+    """``ref_paged_prefill``'s key range cut into 2, 3 or 7 parts, each
+    part's partial output, max and denominator merged by
+    ``ref_merge_splits``, equals the unsplit plain version in fp32 within
+    1e-6. Parts past every row's causal boundary see no key."""
+    if len(case) == 8:
+        args = tuple(torch.tensor(a) for a in _prefill_inputs(case))
+    else:
+        args = _narrow_chunk_inputs(case)
+    for softcap in (0.0, 30.0):
+        o, m, l_ = _split_parts(args, n, softcap)
+        got = ref_merge_splits(o, m, l_)
+        want = ref_paged_prefill(*args, softcap=softcap)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_merge_of_parts_with_no_visible_key():
+    """A part in which no row sees a key (max -1e30, denominator 0, output
+    0) changes nothing; a row that sees no key in any part merges to
+    exactly 0."""
+    args = _narrow_chunk_inputs(NARROW_CHUNKS[1])      # start 800, S 200
+    o, m, l_ = _split_parts(args, 4)
+    # keys 768.. of the 1024-key table: the last part, [768, 1024), holds
+    # every row's newest keys; the empty part is made by hand
+    empty = (torch.zeros_like(o[:1]), torch.full_like(m[:1], -1e30),
+             torch.zeros_like(l_[:1]))
+    want = ref_paged_prefill(*args)
+    for at in (0, 2, 4):
+        parts = [torch.cat([x[:at], e, x[at:]])
+                 for x, e in zip((o, m, l_), empty)]
+        torch.testing.assert_close(ref_merge_splits(*parts), want,
+                                   atol=1e-6, rtol=1e-6)
+    blind = (o.clone(), m.clone(), l_.clone())
+    blind[0][:, 0, 5] = 0.0
+    blind[1][:, 0, 5] = -1e30
+    blind[2][:, 0, 5] = 0.0
+    got = ref_merge_splits(*blind)
+    assert not got[0, 5].any()
+    torch.testing.assert_close(got[0, 6:], want[0, 6:], atol=1e-6, rtol=1e-6)
+
+
+def _blocks(B, S, Hq, Hkv):
+    return B * Hkv * -(-(Hq // Hkv) * S // ROW_TILE)
+
+
+def test_choose_splits():
+    """n = 1 when the grid already fills the 132 SMs; never more parts than
+    key tiles of the table (so none is planned under one key tile) or
+    ``MAX_SPLITS``; at least 132 blocks for the B = 1 40-token tail and the
+    200-token chunks at Llama-3.1-8B's heads."""
+    sms = 132
+    assert choose_splits(4, 72, 32, 8, 2048, sms) == 1      # 160 blocks
+    assert choose_splits(8, 200, 32, 8, 1024, sms) == 1
+    for B, S, cap in [(1, 40, 2048), (1, 200, 256), (1, 200, 512),
+                      (1, 200, 1024), (1, 200, 2048)]:
+        n = choose_splits(B, S, 32, 8, cap, sms)
+        assert _blocks(B, S, 32, 8) * n >= sms, (B, S, n)
+    for B in (1, 2, 4):
+        for S in (1, 5, 40, 72, 200):
+            for Hq, Hkv in ((32, 8), (32, 2), (8, 1), (16, 16)):
+                for cap in (16, 64, 100, 1024, 4096):
+                    n = choose_splits(B, S, Hq, Hkv, cap, sms)
+                    assert 1 <= n <= MAX_SPLITS
+                    assert n == 1 or n <= -(-cap // KEY_TILE)
+                    if _blocks(B, S, Hq, Hkv) >= sms:
+                        assert n == 1
+
+
+# ----------------------------------------------------------------------
+# P rounded for the tensor cores' P @ V
+
+def _online_tc_model(q, k, v, kvis, variant, softcap=0.0):
+    """A test-local copy of the plain algorithm as the tensor-core tile does
+    it: 64-key tiles, the fp32 product of bf16 q and k times the scale, the
+    softcap, the mask, the online softmax in fp32, and P rounded for the
+    bf16 product P @ V, either to bf16 alone or as a bf16 hi/lo pair (hi =
+    bf16(P), lo = bf16(P - hi)). q (..., R, D), k/v (..., T, D);
+    kvis(t0, t1) -> a mask broadcasting to (..., R, t1 - t0). Returns the
+    fp32 output (0 for a row that sees no key)."""
+    D, T = q.shape[-1], k.shape[-2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1], -1e30)
+    den = torch.zeros(q.shape[:-1])
+    o = torch.zeros(q.shape)
+    for t0 in range(0, T, 64):
+        t1 = min(T, t0 + 64)
+        s = (qf @ kf[..., t0:t1, :].transpose(-1, -2)) * D ** -0.5
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        vis = kvis(t0, t1)
+        s = torch.where(vis, s, -1e30)
+        mn = torch.maximum(m, s.amax(-1))
+        p = torch.where(vis, torch.exp(s - mn[..., None]), 0.0)
+        c = torch.exp(m - mn)
+        den = den * c + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[..., t0:t1, :]
+        if variant == "hi_lo":
+            pv = pv + (p - hi).bfloat16().float() @ vf[..., t0:t1, :]
+        o = o * c[..., None] + pv
+        m = mn
+    return torch.where(den[..., None] > 0,
+                       o / den.clamp_min(1e-30)[..., None], 0.0)
+
+
+@pytest.mark.parametrize("cap", [20.0, 30.0, 50.0])
+def test_tensor_core_softcap_formula_is_within_rounding_of_tanh(cap):
+    """The tensor-core tile computes the softcap as (1 - 2 / (2^(x k) + 1))
+    * cap with k = 2 log2(e) / cap (csrc/attn_tile.cuh:soft_cap); in fp32 it
+    stays within 3e-7 * cap of tanh(x / cap) * cap (1.5e-5 at cap 50, a
+    relative change of p far below a bf16 step) and saturates at +-cap."""
+    x = torch.linspace(-40 * cap, 40 * cap, 400001)
+    k = torch.tensor(2 * 1.4426950408889634 / cap, dtype=torch.float32)
+    got = (1 - 2 / (torch.exp2(x * k) + 1)) * cap
+    want = torch.tanh(x.double() / cap) * cap
+    assert (got.double() - want).abs().max() <= 3e-7 * cap
+    big = torch.tensor([-1e30, 1e30])
+    assert torch.equal((1 - 2 / (torch.exp2(big * k) + 1)) * cap,
+                       torch.tensor([-cap, cap]))
+
+
+@pytest.mark.parametrize("variant", ["bf16", "hi_lo"])
+@pytest.mark.parametrize("shape", ["llama", "gemma", *[
+    f"chunk_{c[7]}_{c[8]}_b{c[0]}" for c in NARROW_CHUNKS]])
+def test_p_for_the_tensor_cores_needs_the_hi_lo_pair(shape, variant):
+    """Evidence for the tensor-core tile's P @ V: P rounded to bf16 alone
+    stays within the reference's 2e-2 but not within the main-shape
+    tolerances wherever early rows see few keys and have outputs near 1
+    (the dense FLASH_TOL_SHAPES, the chunk at start 0); P kept as a bf16
+    hi/lo pair holds them everywhere. Deep in the context (rows of ~1000
+    keys) bf16 alone would hold ``MAIN_SHAPE_PREFILL_BF16_TOL``; the shared
+    tile keeps the pair."""
+    if shape in FLASH_TOL_SHAPES:
+        Hq, Hkv, S, window, softcap, qscale = FLASH_TOL_SHAPES[shape]
+        rng = np.random.default_rng(0)
+        q = torch.tensor(rng.standard_normal((1, Hq, S, 128), np.float32)
+                         * qscale).bfloat16()
+        k, v = (torch.tensor(rng.standard_normal((1, Hkv, S, 128),
+                                                 np.float32)).bfloat16()
+                for _ in range(2))
+        want = ref_flash_prefill(q, k, v, window=window,
+                                 softcap=softcap).float()
+        i = torch.arange(S)[:, None]
+
+        def kvis(t0, t1):
+            j = torch.arange(t0, t1)[None]
+            return (j <= i) & (j > i - window) if window else j <= i
+
+        qg = q.reshape(1, Hkv, Hq // Hkv, S, 128)
+        got = _online_tc_model(qg, k[:, :, None], v[:, :, None], kvis,
+                               variant, softcap).reshape(1, Hq, S, 128)
+        main = MAIN_SHAPE_FLASH_BF16_TOL
+    else:
+        case = next(c for c in NARROW_CHUNKS
+                    if shape == f"chunk_{c[7]}_{c[8]}_b{c[0]}")
+        q, kp, vp, bt, start = _narrow_chunk_inputs(case, torch.bfloat16)
+        B, S, Hq, D = q.shape
+        Hkv, T = kp.shape[2], bt.shape[1] * kp.shape[1]
+        want = ref_paged_prefill(q, kp, vp, bt, start).float()
+        k = kp[bt.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3)
+        v = vp[bt.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3)
+        qg = q.reshape(B, S, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
+        qpos = (start[:, None] + torch.arange(S)[None])[:, None, None, :,
+                                                        None]
+
+        def kvis(t0, t1):
+            return torch.arange(t0, t1) <= qpos
+
+        got = _online_tc_model(qg, k[:, :, None], v[:, :, None], kvis,
+                               variant)
+        got = got.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+        main = MAIN_SHAPE_PREFILL_BF16_TOL
+    few_keys = shape in FLASH_TOL_SHAPES or shape.startswith("chunk_200_0_")
+    got = got.bfloat16().float()
+    assert torch.allclose(got, want, atol=2e-2, rtol=2e-2)
+    holds = torch.allclose(got, want, **main)
+    assert holds == (variant == "hi_lo" or not few_keys), \
+        (shape, variant, (got - want).abs().max())
 
 
 # ----------------------------------------------------------------------
