@@ -6,17 +6,20 @@
 Phases, in order; any failure exits non-zero (nothing is caught):
   1. device and build: the card's name and power limit; the four CUDA
      sources built with nvcc for sm_90a, one process each, with ptxas'
-     register/shared-memory/spill report;
+     register/shared-memory/spill report (a tensor-core kernel that spills
+     fails the run);
   2. each Hopper kernel against its plain PyTorch version: the reference's
      kernel-test cases (plus head_dim 16, the toy configs', and a query
      group of 16 at head_dim 256), chatglm3-6b's heads (group 16) at decode
      and chunk shapes for both paged kernels in fp32 (2e-5) and bf16, and
      the main path's shapes (bf16 held to ``kernels.ref.MAIN_SHAPE_BF16_TOL``
-     and ``MAIN_SHAPE_PREFILL_BF16_TOL``), with CUDA-event times of the
-     kernel alone, the plain version and a library yardstick, and the
-     bound. Dense ``flash_prefill``: the reference's cases and the edges its
-     tests leave out (rows with no visible key exactly 0, S != T, windows of 1
-     and past T, group 16, head_dim 256), then, through
+     and ``MAIN_SHAPE_PREFILL_BF16_TOL``; ``paged_decode`` at B=8 and at the
+     engine's own B=4 decode step, ``DECODE_SHAPES``, with the split count
+     chosen), with CUDA-event times of the kernel alone, the plain version
+     and a library yardstick, and the bound. Dense ``flash_prefill``: the
+     reference's cases and the edges its tests leave out (rows with no
+     visible key exactly 0, S != T, windows of 1 and past T, group 16,
+     head_dim 256), then, through
      ``repro_torch.kernels.flash_attention``, Llama-3.1-8B's heads at
      S = T = 1000 and 8192 (causal) and Gemma-2-27B's at 8192 (window 4096,
      softcap 50) in bf16 (``MAIN_SHAPE_FLASH_BF16_TOL``), and the 1000-token
@@ -50,11 +53,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      ``FP32_KV_REL`` per layer;
   7. device times: at the chunk shapes the kernels finish faster than the
      Python wrapper launches them, so back-to-back CUDA-event times measure
-     the host. torch.profiler's records give the device time of the two
+     the host. torch.profiler's records give the device time of the three
      attention kernels redesigned for the tensor cores (and of SDPA beside
-     the paged one) at the main shapes. Last, because the profiler leaves
-     CUPTI active in the process and slows every later launch, which would
-     move phases 3-6's host-bound times.
+     the paged ones) at the main shapes, ``paged_decode`` at both
+     ``DECODE_SHAPES``. Last, because the profiler leaves CUPTI active in
+     the process and slows every later launch, which would move phases
+     3-6's host-bound times.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -62,6 +66,7 @@ beside it and a CUDA card; without either it prints no result and exits 1.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -100,32 +105,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3):
-    """Device time per call of the kernels ``fn`` launches, from
-    torch.profiler's CUDA activity records: the sum of their durations over
-    ``iters`` calls, divided by ``iters``. Unlike ``cuda_ms`` it leaves out
-    the gaps in which the card waits for the host to launch, which decide
-    back-to-back event times when a kernel is shorter than its wrapper. A
-    trace that comes back without device records (it happens) is taken
-    again, up to ``tries`` times; then the result is None, not measured."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [ev.time_range.elapsed_us() for ev in prof.events()
-              if ev.device_type == DeviceType.CUDA]
-        if us:
-            return sum(us) / iters / 1e3
-    return None
-
-
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -140,11 +119,20 @@ def phase_build():
     reports = _build.build_all(force=True)
     log(f"[build] {sorted(reports)} in {time.perf_counter() - t:.3f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    spills = []
     for name, out in sorted(reports.items()):
+        entry = None
         for line in out.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling entry")):
                 log(f"[ptxas {name}] {line.strip()}")
+            if "Compiling entry" in line:
+                entry = line
+            elif "tc_kernel" in (entry or "") and re.search(
+                    r"[1-9]\d* bytes spill (stores|loads)", line):
+                spills.append(entry)
+    # the tensor-core kernels keep their fragments in registers
+    assert not spills, f"tensor-core kernels spill: {spills}"
 
 
 # ======================================================================
@@ -184,12 +172,67 @@ MAIN_CHUNKS = [(1, 200, st) for st in (0, 200, 400, 600, 800)] + [
     (4, 40, 992), (4, 72, 992)]
 
 
+#: the bf16 decode shapes phase 2 times and phase 7 profiles, Llama-3.1-8B's
+#: heads (Hq 32, Hkv 8, D 128, page 16, a 2049-page pool): B, table width,
+#: lengths (low, high), engine layout. "main": B=8 at 1k-4k tokens over
+#: random tables 256 pages wide; "engine": the engine's own fused decode
+#: step (2 models x 2 rows, serving/decode.py) over the main path's
+#: ~1000-token context, tables bucketed to 128 pages with distinct pages and
+#: sentinel page 0 past each sequence
+DECODE_SHAPES = {"main": (8, 256, (1024, 4097), False),
+                 "engine": (4, 128, (1032, 1101), True)}
+
+
+def decode_shape_inputs(name, g):
+    """q, k/v pools, block tables and lengths of DECODE_SHAPES[name] on the
+    card, bf16; random values from the CUDA generator ``g``, lengths (and
+    the engine layout's pages) from numpy seed 0."""
+    import numpy as np
+    import torch
+    B, npages, (lo, hi), engine = DECODE_SHAPES[name]
+    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    ln = rng.integers(lo, hi, B)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).bfloat16()
+    kp = torch.randn((P, page, Hkv, D), generator=g, device=dev).bfloat16()
+    vp = torch.randn((P, page, Hkv, D), generator=g, device=dev).bfloat16()
+    if engine:
+        bt = np.zeros((B, npages), np.int64)
+        perm = rng.permutation(np.arange(1, P))
+        for b, n in enumerate(-(-ln // page)):
+            bt[b, :n] = perm[:n]
+            perm = perm[n:]
+        bt = torch.tensor(bt, dtype=torch.int32, device=dev)
+    else:
+        bt = torch.randint(0, P, (B, npages), generator=g, device=dev,
+                           dtype=torch.int32)
+    return q, kp, vp, bt, torch.tensor(ln, dtype=torch.int32, device=dev)
+
+
+def decode_sdpa_inputs(q, kp, vp, bt, ln):
+    """The yardstick's inputs: K/V gathered into dense (B, Hkv, T, D)
+    beforehand (the gather is not timed), the length mask, and q as
+    (B, Hkv, G, D): the G query heads of one kv head are SDPA's query rows,
+    which is single-token GQA exactly."""
+    import torch
+    B, Hq, D = q.shape
+    page, Hkv = kp.shape[1], kp.shape[2]
+    T = bt.shape[1] * page
+    kd, vd = (x[bt.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3)
+              .contiguous() for x in (kp, vp))
+    mask = (torch.arange(T, device=q.device)[None]
+            < ln[:, None])[:, None, None]
+    return kd, vd, mask, q.view(B, Hkv, Hq // Hkv, D)
+
+
 def phase_kernels(card):
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_decode import paged_decode_attention
+    from repro_torch.kernels.paged_decode import (choose_splits,
+                                                  paged_decode_attention)
     from repro_torch.kernels.paged_write import (launch_on_device_tables,
                                                  paged_write)
     from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
@@ -244,48 +287,56 @@ def phase_kernels(card):
                 f"{dtype} softcap {cap} lengths {lengths.tolist()}: "
                 f"max|err| {err:.3e} (tol {t})")
 
-    # --- paged_decode at the main path's shape
-    B, Hq, Hkv, D, page, P = 8, 32, 8, 128, 16, 2049
-    lengths = torch.tensor(np.random.default_rng(0).integers(1024, 4097, B),
-                           dtype=torch.int32, device=dev)
-    npages = 256                                   # 4096 / 16
-    q, kp, vp, bt, ln = decode_inputs(B, Hq, Hkv, D, page, npages, P,
-                                      torch.bfloat16, lengths)
-    got = paged_decode_attention(q, kp, vp, bt, ln)
-    want = ref_paged_decode(q, kp, vp, bt, ln)
-    torch.cuda.synchronize()
-    dec_err = (got.float() - want.float()).abs().max().item()
-    dec_rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
-    torch.testing.assert_close(got.float(), want.float(), **MAIN_SHAPE_BF16_TOL)
-    dec_ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, bt, ln))
-    dec_plain = cuda_ms(lambda: ref_paged_decode(q, kp, vp, bt, ln))
-    T = npages * page
-    # yardstick: K/V gathered into dense (B, Hkv, T, D) beforehand (the
-    # gather is not timed); the G query heads of one kv head are SDPA's
-    # query rows, which is single-token GQA exactly
-    kd = kp[bt.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3).contiguous()
-    vd = vp[bt.long()].reshape(B, T, Hkv, D).permute(0, 2, 1, 3).contiguous()
-    mask = (torch.arange(T, device=dev)[None] < ln[:, None])[:, None, None]
-    qg = q.view(B, Hkv, Hq // Hkv, D)
-    lib_out = F.scaled_dot_product_attention(qg, kd, vd, attn_mask=mask)
-    torch.testing.assert_close(lib_out.reshape(B, Hq, D).float(),   # sanity
-                               want.float(), atol=2e-2, rtol=2e-2)
-    dec_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qg, kd, vd, attn_mask=mask))
-    L = int(ln.sum())
-    live_pages = int(((ln + page - 1) // page).sum())
-    dec_bytes = (L * Hkv * D * 2 * 2 + 2 * q.numel() * 2
-                 + live_pages * 4 + B * 4)
-    dec_ops = 4 * Hq * D * L
-    dec_bound = max(dec_bytes / HBM_BYTES_PER_S,
-                    dec_ops / BF16_FLOPS) * 1e3
-    log(f"[paged_decode] main shape B={B} Hq={Hq} Hkv={Hkv} D={D} page={page}"
-        f" bf16 lengths {ln.tolist()}: max|err| {dec_err:.3e}, relative "
-        f"norm {dec_rel:.3e} (tol {MAIN_SHAPE_BF16_TOL}); kernel "
-        f"{dec_ms:.4f} ms, plain {dec_plain:.4f} ms, "
-        f"sdpa on pre-gathered dense K/V (gather excluded) {dec_lib:.4f} ms,"
-        f" bound {dec_bound:.4f} ms ({dec_bytes} B) on {card}")
-    del q, kp, vp, kd, vd
+    # --- paged_decode at the main path's shapes: chip_smoke's B=8 and the
+    # engine's own B=4 step (DECODE_SHAPES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dec = {}
+    for name in DECODE_SHAPES:
+        q, kp, vp, bt, ln = decode_shape_inputs(name, g)
+        B, Hq, D = q.shape
+        page, Hkv = kp.shape[1], kp.shape[2]
+        npages = bt.shape[1]
+        splits = choose_splits(B, Hkv, npages * page, sms)
+        got = paged_decode_attention(q, kp, vp, bt, ln)
+        want = ref_paged_decode(q, kp, vp, bt, ln)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **MAIN_SHAPE_BF16_TOL)
+        capped = paged_decode_attention(q, kp, vp, bt, ln, softcap=30.0)
+        want_c = ref_paged_decode(q, kp, vp, bt, ln, softcap=30.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(capped.float(), want_c.float(),
+                                   **MAIN_SHAPE_BF16_TOL)
+        err_c = (capped.float() - want_c.float()).abs().max().item()
+        del capped, want_c
+        ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, bt, ln))
+        plain = cuda_ms(lambda: ref_paged_decode(q, kp, vp, bt, ln))
+        kd, vd, mask, qg = decode_sdpa_inputs(q, kp, vp, bt, ln)
+        lib_out = F.scaled_dot_product_attention(qg, kd, vd, attn_mask=mask)
+        torch.testing.assert_close(lib_out.reshape(B, Hq, D).float(),
+                                   want.float(), atol=2e-2, rtol=2e-2)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qg, kd, vd, attn_mask=mask))
+        L = int(ln.sum())
+        live_pages = int(((ln + page - 1) // page).sum())
+        nbytes = (L * Hkv * D * 2 * 2 + 2 * q.numel() * 2
+                  + live_pages * 4 + B * 4)
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    4 * Hq * D * L / BF16_FLOPS) * 1e3
+        log(f"[paged_decode] {name} shape B={B} Hq={Hq} Hkv={Hkv} D={D} "
+            f"page={page} npages={npages} bf16 lengths {ln.tolist()}, "
+            f"{splits} key part(s) on {sms} SMs: max|err| {err:.3e}, "
+            f"relative norm {rel:.3e}, softcap 30 max|err| {err_c:.3e} "
+            f"(tol {MAIN_SHAPE_BF16_TOL}); kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa on pre-gathered dense "
+            f"K/V (gather excluded) {lib:.4f} ms, bound {bound:.4f} ms "
+            f"({nbytes} B) on {card}")
+        dec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by="bytes", library_ms=lib)
+        del q, kp, vp, kd, vd
 
     # --- paged_write: reference cases, then Llama's 32 folded layers
     for case in [(3, 64, 2, 32, 16, 24), (1, 32, 4, 64, 8, 12),
@@ -307,7 +358,7 @@ def phase_kernels(card):
             log(f"[paged_write] case {case} {dtype}: bitwise equal")
 
     n_full, prompt, npg = 32, 1024, 64
-    P1 = 2049
+    Hkv, D, page, P1 = 8, 128, 16, 2049           # Llama-3.1-8B's pool
     nk = torch.randn((n_full, prompt, Hkv, D), generator=g,
                      device=dev).to(torch.bfloat16)
     nv = torch.randn((n_full, prompt, Hkv, D), generator=g,
@@ -363,9 +414,7 @@ def phase_kernels(card):
     return {
         "flash_prefill": phase_flash_kernel(card),
         "flash_prefill_paged": phase_prefill_kernel(card),
-        "paged_decode": dict(max_abs_err=dec_err, ms=dec_ms,
-                             plain_ms=dec_plain, bound_ms=dec_bound,
-                             bound_by="bytes", library_ms=dec_lib),
+        "paged_decode": dec["main"],
         "paged_write": dict(max_abs_err=wr_err, ms=wr_ms, plain_ms=wr_plain,
                             bound_ms=wr_bound, bound_by="bytes",
                             library_ms=wr_lib),
@@ -1117,17 +1166,30 @@ def phase_fp32_parity(card, n_layers: int):
 
 def phase_device_times(card):
     """Device time (``device_ms``) of the tensor-core kernels at the main
-    shapes: ``flash_prefill_paged`` at every MAIN_CHUNKS forward beside
-    SDPA on pre-gathered dense K/V, dense ``flash_prefill`` at FLASH_MAIN's
-    bf16 shapes."""
+    shapes: ``paged_decode`` at both DECODE_SHAPES and ``flash_prefill_paged``
+    at every MAIN_CHUNKS forward, each beside SDPA on pre-gathered dense
+    K/V, dense ``flash_prefill`` at FLASH_MAIN's bf16 shapes."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch import kernels
     from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.paged_decode import paged_decode_attention
+    from repro_torch.launch.timing import device_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
+    for name in DECODE_SHAPES:
+        q, kp, vp, bt, ln = decode_shape_inputs(name, g)
+        ms = device_ms(lambda: paged_decode_attention(q, kp, vp, bt, ln))
+        kd, vd, mask, qg = decode_sdpa_inputs(q, kp, vp, bt, ln)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qg, kd, vd, attn_mask=mask))
+        log(f"[device time] paged_decode {name} shape B={q.shape[0]} "
+            f"npages={bt.shape[1]} bf16: kernel (with its merge) "
+            f"{fmt_ms(ms)}, sdpa on pre-gathered dense K/V {fmt_ms(lib)} "
+            f"(torch.profiler, mean of 20 calls) on {card}")
+        del q, kp, vp, kd, vd
     Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
     G = Hq // Hkv
     for B, S, st0 in MAIN_CHUNKS:

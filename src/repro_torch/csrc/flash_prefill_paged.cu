@@ -43,11 +43,11 @@
 // asks for n parts (kernels/flash_prefill_paged.py:choose_splits); part p of
 // a block takes its key tiles [p * nt / n, (p + 1) * nt / n), writes its
 // unnormalised fp32 output, max and denominator to scratch, and
-// merge_splits_kernel combines the parts and rounds to bf16 once. With n = 1
-// the tile kernel writes bf16 itself and nothing is merged. Against the
-// CUDA-core kernel below: tensor cores instead of fp32 CUDA cores, K/V kept
-// bf16, loads in flight during the compute, scores in registers, and
-// enough blocks at B = 1.
+// merge_splits.cuh's kernel combines the parts and rounds to bf16 once.
+// With n = 1 the tile kernel writes bf16 itself and nothing is merged.
+// Against the CUDA-core kernel below: tensor cores instead of fp32 CUDA
+// cores, K/V kept bf16, loads in flight during the compute, scores in
+// registers, and enough blocks at B = 1.
 //
 // fp32 at every head_dim, and bf16 at head_dim 16 and 32, keep the CUDA-core
 // kernel (flash_prefill_paged_kernel; 2e-5 cannot be held on bf16 or TF32
@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_tile.cuh"
+#include "merge_splits.cuh"
 
 namespace {
 
@@ -338,7 +339,10 @@ __global__ void __launch_bounds__(NT) flash_prefill_paged_kernel(
 // ----------------------------------------------------------------------
 // bf16 on the tensor cores
 
-constexpr int MAX_SPLITS = 16;  // parts of a split key range
+using merge_splits::MAX_SPLITS;
+
+// names the merge's instantiation for this caller (merge_splits.cuh)
+struct flash_prefill_paged_merge;
 
 template <int D>
 struct TcShape {
@@ -479,35 +483,6 @@ __global__ void __launch_bounds__(128, 1) flash_prefill_paged_tc_kernel(
   }
 }
 
-// out[row] = sum_p w_p o_p / sum_p w_p l_p with w_p = exp(m_p - max_p m_p),
-// rounded to bf16 once; 0 where the denominator is 0. One warp per row of
-// the n_rows = B * S * Hq output rows.
-__global__ void __launch_bounds__(128) merge_splits_kernel(
-    const float* __restrict__ part_o, const float* __restrict__ part_ml,
-    __nv_bfloat16* __restrict__ out, int nsplit, long long n_rows, int D) {
-  const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const float* pm = part_ml;
-  const float* pl = part_ml + (long long)nsplit * n_rows;
-  float mx = -1e30f;
-  for (int p = 0; p < nsplit; ++p) mx = fmaxf(mx, pm[p * n_rows + row]);
-  float w[MAX_SPLITS];
-  float den = 0.f;
-#pragma unroll
-  for (int p = 0; p < MAX_SPLITS; ++p) {
-    w[p] = p < nsplit ? expf(pm[p * n_rows + row] - mx) : 0.f;
-    if (p < nsplit) den += w[p] * pl[p * n_rows + row];
-  }
-  for (int d = lane; d < D; d += 32) {
-    float acc = 0.f;
-#pragma unroll
-    for (int p = 0; p < MAX_SPLITS; ++p)
-      if (p < nsplit) acc += w[p] * part_o[(p * n_rows + row) * D + d];
-    out[row * D + d] = __float2bfloat16(den > 0.f ? acc / den : 0.f);
-  }
-}
-
 template <int D>
 cudaError_t launch_tc(cudaStream_t st, const void* q, const void* kp,
                       const void* vp, const void* bt, const void* sp,
@@ -529,10 +504,9 @@ cudaError_t launch_tc(cudaStream_t st, const void* q, const void* kp,
   if (nsplit > 1) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const long long n_rows = (long long)B * S * Hkv * G;
-    merge_splits_kernel<<<(unsigned)((n_rows + 3) / 4), 128, 0, st>>>(
-        (const float*)part_o, (const float*)part_ml, (__nv_bfloat16*)out,
-        nsplit, n_rows, D);
+    return merge_splits::launch<flash_prefill_paged_merge>(
+        st, (const float*)part_o, (const float*)part_ml, (__nv_bfloat16*)out,
+        nsplit, (long long)B * S * Hkv * G, D);
   }
   return cudaSuccess;
 }

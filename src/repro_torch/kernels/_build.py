@@ -103,6 +103,19 @@ class _Libraries:
 LIBRARIES = _Libraries()
 
 
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a C entry point."""
     if err != 0:

@@ -35,7 +35,6 @@ MAX_GROUP = 16
 ROW_TILE = KEY_TILE = 64
 #: most parts a key range is split into (the merge kernel's bound)
 MAX_SPLITS = 16
-_SMS: dict = {}
 
 
 def choose_splits(B: int, S: int, Hq: int, Hkv: int, key_capacity: int,
@@ -53,14 +52,6 @@ def choose_splits(B: int, S: int, Hq: int, Hkv: int, key_capacity: int,
         return 1
     return max(1, min(math.ceil(sms / blocks), MAX_SPLITS,
                       math.ceil(key_capacity / KEY_TILE)))
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def flash_prefill_paged(q, k_pages, v_pages, block_tables, start, *,
@@ -116,7 +107,7 @@ def flash_prefill_paged(q, k_pages, v_pages, block_tables, start, *,
                          "start (B,) must be int32")
     if q.dtype == torch.bfloat16 and D >= 64:       # the tensor-core path
         n = splits or choose_splits(B, S, Hq, Hkv, npages * page,
-                                    _sm_count(q.device))
+                                    _build.sm_count(q.device))
     else:
         n = splits or 1
         if n != 1:

@@ -153,14 +153,15 @@ def ref_paged_prefill(q, k_pages, v_pages, block_tables, start, *,
 
 
 def ref_merge_splits(o_parts, m_parts, l_parts):
-    """Combine the parts of a key range split for ``flash_prefill_paged``.
+    """Combine the parts of a key range split for ``flash_prefill_paged`` or
+    ``paged_decode``.
 
     o_parts: (n, ..., D) fp32 unnormalised outputs (sum of exp(s - m) v over
     a part's visible keys); m_parts, l_parts: (n, ...) the part's running
     max (-1e30 where it saw no key) and denominator. Returns (..., D) fp32:
     sum_p w_p o_p / sum_p w_p l_p with w_p = exp(m_p - max_p m_p), and 0
     where that denominator is 0 (a row with no visible key in any part).
-    The plain version of ``csrc/flash_prefill_paged.cu:merge_splits_kernel``
+    The plain version of ``csrc/merge_splits.cuh:merge_splits_kernel``
     (before its rounding to the output's dtype)."""
     mx = m_parts.max(dim=0).values
     w = torch.exp(m_parts - mx)

@@ -25,7 +25,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-KEEP = ("[build]", "[paged_decode] main shape", "[paged_write] Llama fold",
+KEEP = ("[build]", "[paged_decode] main shape", "[paged_decode] engine",
+        "[paged_write] Llama fold",
         "[flash_prefill_paged] main", "[flash_prefill] shape", "[main] turn",
         "[main] launches", "[chunked] shared context prefill",
         "[chunked] turn", "[chunked] launches", "[device time]",

@@ -29,13 +29,17 @@ import time
 
 
 def _kernel_class(name: str) -> str:
+    """A kernel's class by its name. The split's merge kernel
+    (``csrc/merge_splits.cuh``) is a template on a tag that names its
+    caller, ``paged_decode_merge`` or ``flash_prefill_paged_merge``, and is
+    counted with that caller."""
     n = name.lower()
     if "paged_decode" in n:
         return "paged_decode"
     if "paged_write" in n:
         return "paged_write"
-    if "flash_prefill_paged" in n or "merge_splits" in n:
-        return "flash_prefill_paged"      # with its split's merge kernel
+    if "flash_prefill_paged" in n:
+        return "flash_prefill_paged"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma",
                             "nvjet")):
         return "matmul"

@@ -5,9 +5,10 @@ tests/test_torch_gpu.py`` on a machine with an H100 (the kernels build with
 nvcc for sm_90a at first use). Elsewhere every test skips, decided inside a
 fixture so that every pytest worker collects the same tests. Tolerances are
 the reference kernel tests' (2e-5 fp32, 2e-2 bf16), except bf16 at the
-Llama-3.1-8B and chatglm3-6b decode and chunk shapes, which are held to
-``MAIN_SHAPE_BF16_TOL`` and ``MAIN_SHAPE_PREFILL_BF16_TOL``, and at the
-full-width dense shapes (Llama-3.1-8B's and Gemma-2-27B's heads), held to
+Llama-3.1-8B (chip_smoke's and the engine's own) and chatglm3-6b decode and
+chunk shapes, which are held to ``MAIN_SHAPE_BF16_TOL`` and
+``MAIN_SHAPE_PREFILL_BF16_TOL``, and at the full-width dense shapes
+(Llama-3.1-8B's and Gemma-2-27B's heads), held to
 ``MAIN_SHAPE_FLASH_BF16_TOL``; paged_write is exact. The toy engines run at
 the reference's own head_dim 16 and at 32, eager and chunked.
 """
@@ -33,6 +34,9 @@ from repro_torch.serving import LocalDisaggEngine, SamplingParams
 pytestmark = pytest.mark.gpu
 
 LLAMA_DECODE = (8, 32, 8, 128, 16, 256, 2049)
+# the engine's own fused decode step at Llama-3.1-8B width: 2 models x 2
+# rows, tables bucketed to 128 pages (serving/decode.py)
+ENGINE_DECODE = (4, 32, 8, 128, 16, 128, 2049)
 # chatglm3-6b's heads (src/repro/configs/chatglm3_6b.py: 32 query heads, 2
 # kv heads, so a query group of 16, head_dim 128), page 16, up to 4k tokens
 CHATGLM_DECODE = (4, 32, 2, 128, 16, 256, 1025)
@@ -46,9 +50,10 @@ PAGED_CASES = [
     (4, 2, 1, 16, 8, 4, 20),           # head_dim 16 (the toy configs)
     (2, 16, 1, 256, 16, 4, 12),        # group 16 at head_dim 256
     LLAMA_DECODE,                      # Llama-3.1-8B decode shape
+    ENGINE_DECODE,                     # the engine's decode step
     CHATGLM_DECODE,                    # chatglm3-6b's heads
 ]
-MAIN_DECODE = (LLAMA_DECODE, CHATGLM_DECODE)
+MAIN_DECODE = (LLAMA_DECODE, ENGINE_DECODE, CHATGLM_DECODE)
 # B, Hq, Hkv, D, page, npages, pool, S, start (None: random); the chunked
 # main path's chunk forwards, each table as wide as the scheduler buckets it
 # (next power of two of the pages in use): the shared context's 200-token
@@ -107,10 +112,95 @@ def test_paged_decode_kernel_matches_plain(card, case, dtype, softcap):
     torch.cuda.synchronize()
     assert paged_decode_attention.launches == before + 1
     want = ref_paged_decode(q, kp, vp, bt, ln, softcap=softcap)
-    tol = {"atol": TOL[dtype], "rtol": TOL[dtype]}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_decode_tol(case, dtype))
+
+
+def _decode_inputs(card, case, dtype, lengths=None, seed=0):
+    """Random q and pools; tables of distinct pages with sentinel page 0
+    past each sequence's last page (the engine's layout); lengths random
+    in 1..npages * page unless given."""
+    B, Hq, Hkv, D, page, npages, P = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, Hq, D), generator=g, device=card).to(dtype)
+    kp = torch.randn((P, page, Hkv, D), generator=g, device=card).to(dtype)
+    vp = torch.randn((P, page, Hkv, D), generator=g, device=card).to(dtype)
+    rng = np.random.default_rng(seed)
+    ln = (rng.integers(1, page * npages + 1, B) if lengths is None
+          else np.asarray(lengths))
+    bt = np.zeros((B, npages), np.int64)
+    for b in range(B):
+        live = -(-int(ln[b]) // page)
+        bt[b, :live] = rng.choice(np.arange(1, P), live, replace=live > P - 1)
+    return (q, kp, vp, torch.tensor(bt, dtype=torch.int32, device=card),
+            torch.tensor(ln, dtype=torch.int32, device=card))
+
+
+def _decode_tol(case, dtype):
     if case in MAIN_DECODE and dtype == torch.bfloat16:
-        tol = MAIN_SHAPE_BF16_TOL
+        return MAIN_SHAPE_BF16_TOL
+    return {"atol": TOL[dtype], "rtol": TOL[dtype]}
+
+
+@pytest.mark.parametrize("splits", [2, 3, 7])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("case", [c for c in PAGED_CASES if c[3] >= 64],
+                         ids=str)
+def test_paged_decode_split_matches_unsplit(card, case, softcap, splits):
+    """The bf16 tensor-core kernel with each sequence's keys split into 2, 3
+    or 7 parts and merged, against the same kernel unsplit and against the
+    plain version (one launch counted per call either way). Random lengths
+    from 1 up leave some parts without a key."""
+    args = _decode_inputs(card, case, torch.bfloat16)
+    whole = paged_decode_attention(*args, softcap=softcap, splits=1)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args, softcap=softcap, splits=splits)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = ref_paged_decode(*args, softcap=softcap)
+    tol = _decode_tol(case, torch.bfloat16)
+    torch.testing.assert_close(got.float(), whole.float(), **tol)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype,splits", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, 1),
+    (torch.bfloat16, 3)], ids=str)
+def test_paged_decode_ragged_batch_with_padding_rows(card, dtype, splits):
+    """The fused grid's ragged batch at the engine's width: real rows of
+    1032-1100 tokens beside padding rows (length 1, a table of zeros, so
+    they attend over sentinel page 0 alone). Every row matches the plain
+    version; a padding row's output is sentinel page 0's first V row."""
+    B, Hq, Hkv, D, page, npages, P = ENGINE_DECODE
+    ln = [1071, 1, 1100, 1032, 1, 1, 1057, 1]
+    q, kp, vp, bt, lengths = _decode_inputs(
+        card, (len(ln), Hq, Hkv, D, page, npages, P), dtype, ln, seed=4)
+    pad = torch.tensor([n == 1 for n in ln], device=card)
+    bt[pad] = 0
+    got = paged_decode_attention(q, kp, vp, bt, lengths, splits=splits)
+    want = ref_paged_decode(q, kp, vp, bt, lengths)
+    torch.cuda.synchronize()
+    tol = (MAIN_SHAPE_BF16_TOL if dtype == torch.bfloat16
+           else {"atol": 2e-5, "rtol": 2e-5})
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    v0 = vp[0, 0].repeat_interleave(Hq // Hkv, dim=0)         # (Hq, D)
+    for b in torch.nonzero(pad).flatten().tolist():
+        torch.testing.assert_close(got[b].float(), v0.float(), **tol)
+
+
+def test_paged_decode_counts_one_launch_per_call(card):
+    """One count per call on the card, whether or not the parts are merged;
+    none on the CPU, where the plain version runs."""
+    args = _decode_inputs(card, ENGINE_DECODE, torch.bfloat16)
+    cpu = tuple(a.cpu() for a in args)
+    before = paged_decode_attention.launches
+    paged_decode_attention(*cpu)
+    assert paged_decode_attention.launches == before
+    for n in (None, 1, 5):
+        paged_decode_attention(*args, splits=n)
+        torch.cuda.synchronize()
+        before += 1
+        assert paged_decode_attention.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

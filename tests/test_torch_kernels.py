@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_prefill_paged import (KEY_TILE, MAX_SPLITS,
                                                      ROW_TILE, choose_splits,
                                                      flash_prefill_paged)
 from repro_torch.kernels.ops import flash_attention
+from repro_torch.kernels import paged_decode as decode_mod
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.kernels.paged_write import paged_write
 from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
@@ -517,6 +518,254 @@ def test_choose_splits():
                     assert n == 1 or n <= -(-cap // KEY_TILE)
                     if _blocks(B, S, Hq, Hkv) >= sms:
                         assert n == 1
+
+
+# ----------------------------------------------------------------------
+# the split over keys of the tensor-core paged_decode
+
+def _decode_part_bounds(lengths, n, p):
+    """Keys [lo, hi) of part p of n, per sequence, as the kernel computes
+    them on the card: each length's ceil(len / 64) key tiles shared out as
+    [p * nt // n, (p + 1) * nt // n), cut at the length."""
+    tile = decode_mod.KEY_TILE
+    nt = (lengths.clamp_min(0) + tile - 1) // tile
+    lo = p * nt // n * tile
+    hi = torch.minimum((p + 1) * nt // n * tile, lengths)
+    return lo, hi
+
+
+def _partial_paged_decode(q, k_pages, v_pages, block_tables, lengths, lo, hi,
+                          softcap=0.0):
+    """One part of a split key range: the unnormalised output, max and
+    denominator of ``ref_paged_decode`` over keys [lo[b], hi[b]) only,
+    (B, Hq, D) and (B, Hq), fp32; a part that sees no key gets max -1e30,
+    denominator 0 and output 0 (what the kernel's part writes)."""
+    B, Hq, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    npages = block_tables.shape[1]
+    g, T = Hq // Hkv, npages * page
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, T, Hkv, D).float()
+    v = v_pages[bt].reshape(B, T, Hkv, D).float()
+    qg = q.reshape(B, Hkv, g, D).float() * D ** -0.5
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    t = torch.arange(T)[None]
+    mask = ((t < lengths[:, None]) & (t >= lo[:, None])
+            & (t < hi[:, None]))[:, None, None]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bhgt,bthd->bhgd", p, v)
+    return o.reshape(B, Hq, D), m.reshape(B, Hq), p.sum(dim=-1).reshape(B, Hq)
+
+
+@pytest.mark.parametrize("n", [2, 3, 7])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=str)
+def test_decode_split_key_ranges_merge_to_the_unsplit_plain_version(case, n):
+    """``ref_paged_decode``'s keys cut into 2, 3 or 7 parts on the kernel's
+    key-tile bounds, each part's partial output, max and denominator merged
+    by ``ref_merge_splits``, equal the unsplit plain version in fp32 within
+    1e-6: at random lengths, at lengths of 1, 17, 64 and 65 (not a multiple
+    of the tile) and at the table's capacity. Parts that see no key (more
+    parts than key tiles) change nothing."""
+    q, kp, vp, bt, ln = (torch.tensor(a) for a in _decode_inputs(case))
+    cap = bt.shape[1] * kp.shape[1]
+    empty = 0
+    for lengths in (ln, *(torch.full_like(ln, min(x, cap))
+                          for x in (1, 17, 64, 65, cap))):
+        for softcap in (0.0, 30.0):
+            parts = []
+            for p in range(n):
+                lo, hi = _decode_part_bounds(lengths, n, p)
+                empty += int((hi <= lo).sum())
+                parts.append(_partial_paged_decode(q, kp, vp, bt, lengths,
+                                                   lo, hi, softcap))
+            got = ref_merge_splits(*(torch.stack(x) for x in zip(*parts)))
+            want = ref_paged_decode(q, kp, vp, bt, lengths, softcap=softcap)
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    assert empty > 0                    # length 1: n - 1 parts see no key
+
+
+def test_decode_choose_splits():
+    """n = 1 once B * Hkv blocks leave at most a sixteenth of the SMs idle;
+    otherwise the most parts that fit one wave of two blocks an SM, at most
+    ``MAX_SPLITS`` and one part per ``MIN_PART_TILES`` key tiles of the
+    table's capacity (so none is planned under that). The B=8 main shape
+    and the engine's B=4 step split in 4, chatglm3-6b's heads (8 blocks) at
+    4096 keys in 8; 128 blocks do not split (the sweep in PERF.md)."""
+    choose, sms = decode_mod.choose_splits, 132
+    assert choose(8, 8, 4096, sms) == 4                   # the main shape
+    assert choose(4, 8, 2048, sms) == 4                   # the engine's
+    assert choose(4, 2, 4096, sms) == 8                   # chatglm3-6b
+    assert choose(1, 8, 2048, sms) == 4
+    assert choose(16, 8, 2048, sms) == 1                  # 128 blocks
+    assert choose(32, 8, 4096, sms) == 1
+    assert choose(1, 1, 16, sms) == 1                     # one key tile
+    assert choose(1, 1, 100, sms) == 1
+    assert choose(1, 1, 1 << 20, sms) == decode_mod.MAX_SPLITS
+    per_part = decode_mod.KEY_TILE * decode_mod.MIN_PART_TILES
+    for B in (1, 2, 3, 4, 8, 16, 40):
+        for Hkv in (1, 2, 8, 16):
+            for cap in (8, 16, 64, 65, 1024, 2048, 4096, 1 << 16):
+                n = choose(B, Hkv, cap, sms)
+                assert 1 <= n <= min(decode_mod.MAX_SPLITS,
+                                     max(1, -(-cap // per_part)))
+                if B * Hkv >= sms - sms // 16:
+                    assert n == 1
+                elif n > 1:
+                    assert B * Hkv * n <= 2 * sms
+                    assert n == min(2 * sms // (B * Hkv),
+                                    decode_mod.MAX_SPLITS,
+                                    -(-cap // per_part))
+
+
+@pytest.mark.parametrize("spec", ["zero", "seventeen", "f32", "bf16_d32"])
+def test_decode_wrapper_refuses_splits_it_cannot_run(spec):
+    """Off the CPU, ``splits=`` outside 1..16, or above 1 where the kernel
+    does not split (fp32, bf16 at head_dim 32), is refused by name before
+    the device is looked at (meta tensors here); 16 passes to the device
+    check."""
+    dtype, d, n = {"zero": (torch.bfloat16, 128, 0),
+                   "seventeen": (torch.bfloat16, 128, 17),
+                   "f32": (torch.float32, 128, 2),
+                   "bf16_d32": (torch.bfloat16, 32, 2)}[spec]
+    q = torch.zeros((2, 8, d), dtype=dtype, device="meta")
+    kp = torch.zeros((4, 16, 2, d), dtype=dtype, device="meta")
+    bt = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match=f"splits={n}"):
+        paged_decode_attention(q, kp, kp, bt, bt[:, 0], splits=n)
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_decode_attention(q, kp, kp, bt, bt[:, 0],
+                               splits=16 if dtype == torch.bfloat16
+                               and d >= 64 else 1)
+
+
+def test_profiler_counts_each_merge_with_its_caller():
+    """The shared merge kernel is a template on a tag naming its caller
+    (``csrc/merge_splits.cuh``); the profiler's kernel classes count it
+    with that caller, by the demangled name each source instantiates."""
+    import re
+
+    from repro_torch.launch.profile import _kernel_class
+    seen = {}
+    for name in ("paged_decode", "flash_prefill_paged"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        tags = set(re.findall(r"merge_splits::launch<(\w+)>", src))
+        assert len(tags) == 1, (name, tags)
+        tag = tags.pop()
+        kernel = (f"void merge_splits::merge_splits_kernel<(anonymous "
+                  f"namespace)::{tag}>(float const*, float const*, "
+                  f"__nv_bfloat16*, int, long long, int)")
+        seen[name] = _kernel_class(kernel)
+    assert seen == {"paged_decode": "paged_decode",
+                    "flash_prefill_paged": "flash_prefill_paged"}
+    assert _kernel_class("void (anonymous namespace)::paged_decode_tc_kernel"
+                         "<128>(__nv_bfloat16 const*)") == "paged_decode"
+
+
+def _decode_tc_model(q, k_pages, v_pages, block_tables, lengths, variant,
+                     softcap=0.0):
+    """A test-local copy of the plain algorithm as the tensor-core decode
+    kernel does it, unsplit: 64-key tiles whose four 16-key chunks go to
+    four warps, each warp an online softmax of its own (the fp32 product of
+    bf16 q and k times the scale, the softcap, the mask, the running max
+    after each chunk, P taken against it and rounded for the bf16 product
+    P @ V: to bf16 alone, with the denominator summing P as rounded, or as
+    a bf16 hi/lo pair), then the four warps combined in fp32. The running
+    rescale is taken in closed form (a chunk's P V and P sum times
+    exp(m_chunk - m_final)), so one product covers every chunk. Returns
+    (B, Hq, D) fp32."""
+    B, Hq, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    G, T = Hq // Hkv, block_tables.shape[1] * page
+    nt = -(-T // 64)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, T, Hkv, D).permute(0, 2, 1, 3).float()
+    v = v_pages[bt].reshape(B, T, Hkv, D).permute(0, 2, 1, 3).float()
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, nt * 64 - T))
+            for x in (k, v))
+    s = torch.einsum("bhgd,bhtd->bhgt", q.reshape(B, Hkv, G, D).float(),
+                     k) * D ** -0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    vis = (torch.arange(nt * 64)[None] < lengths[:, None])[:, None, None]
+    s = torch.where(vis, s, -1e30).reshape(B, Hkv, G, nt, 4, 16)
+    vis = vis.reshape(B, 1, 1, nt, 4, 16)
+    m = s.amax(-1).cummax(dim=3).values            # after each chunk
+    p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+    hi = p.bfloat16().float()
+    if variant == "bf16":
+        pv, psum = hi, hi.sum(-1)
+    else:
+        pv, psum = hi + (p - hi).bfloat16().float(), p.sum(-1)
+    c = torch.exp(m - m[:, :, :, -1:])            # to the warp's final max
+    den = (psum * c).sum(3)                        # (B, Hkv, G, 4)
+    o = torch.einsum("bhgjwk,bhjwkd->bhgwd", pv * c[..., None],
+                     v.reshape(B, Hkv, nt, 4, 16, D))
+    mw = m[:, :, :, -1]
+    w = torch.exp(mw - mw.amax(-1, keepdim=True))
+    num = (w[..., None] * o).sum(3)
+    tot = (w * den).sum(3)
+    out = torch.where(tot[..., None] > 0,
+                      num / tot.clamp_min(1e-30)[..., None], 0.0)
+    return out.reshape(B, Hq, D)
+
+
+#: the decode shapes the card holds to ``MAIN_SHAPE_BF16_TOL``: B, Hq, Hkv,
+#: npages, pool, lengths: chip_smoke's B=8 main shape (1k-4k tokens), the
+#: engine's own B=4 step (~1.0-1.1k), chatglm3-6b's heads, and the main
+#: widths at the short lengths the card tests also draw (random lengths
+#: from 1 up); D 128, page 16
+DECODE_TC_SHAPES = {"main": (8, 32, 8, 256, 2049, (1024, 4097)),
+                    "engine": (4, 32, 8, 128, 2049, (1032, 1101)),
+                    "chatglm": (4, 32, 2, 256, 1025, (1024, 4097)),
+                    "main_short": (4, 32, 8, 128, 2049, [(1, 2, 3, 5),
+                                                         (8, 16, 17, 33)])}
+
+
+@pytest.mark.parametrize("variant", ["bf16", "hi_lo"])
+@pytest.mark.parametrize("shape", [*DECODE_TC_SHAPES, *[
+    f"short_{c}" for c in PAGED_CASES if c[3] >= 64]])
+def test_p_for_the_decode_tensor_cores_needs_the_hi_lo_pair(shape, variant):
+    """Evidence for the decode kernel's P @ V: P rounded to bf16 alone (the
+    denominator summing P as rounded) holds ``MAIN_SHAPE_BF16_TOL`` where
+    rows see 1k-4k keys (the main, engine and chatglm3-6b decode shapes)
+    and the reference's 2e-2 at its cases with 1-64 keys, but not the
+    main-shape tolerance at the main widths where rows see a few dozen keys
+    or fewer, which the card's tests draw; P kept as a bf16 hi/lo pair
+    holds every one, so the kernel takes the pair."""
+    if shape in DECODE_TC_SHAPES:
+        B, Hq, Hkv, npages, P, lens = DECODE_TC_SHAPES[shape]
+        rng = np.random.default_rng(0)
+        q, kp, vp = (torch.tensor(rng.standard_normal(s, np.float32))
+                     .bfloat16() for s in ((B, Hq, 128), (P, 16, Hkv, 128),
+                                           (P, 16, Hkv, 128)))
+        bt = torch.tensor(rng.integers(1, P, (B, npages)), dtype=torch.int32)
+        ln = ([torch.tensor(x, dtype=torch.int32) for x in lens]
+              if isinstance(lens, list) else
+              [torch.tensor(rng.integers(*lens, B), dtype=torch.int32)])
+        tol = MAIN_SHAPE_BF16_TOL
+    else:
+        case = next(c for c in PAGED_CASES if shape == f"short_{c}")
+        q, kp, vp, bt, _ = (torch.tensor(a) for a in _decode_inputs(case))
+        q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+        cap = bt.shape[1] * kp.shape[1]
+        ln = [torch.full((q.shape[0],), min(x, cap), dtype=torch.int32)
+              for x in (1, 2, 3, 17, 64)]
+        tol = {"atol": 2e-2, "rtol": 2e-2}
+    holds = True
+    for lengths in ln:
+        for softcap in (0.0, 30.0):
+            want = ref_paged_decode(q, kp, vp, bt, lengths,
+                                    softcap=softcap).float()
+            got = _decode_tc_model(q, kp, vp, bt, lengths, variant, softcap)
+            got = got.bfloat16().float()
+            assert torch.allclose(got, want, atol=2e-2, rtol=2e-2)
+            holds &= torch.allclose(got, want, **tol)
+    assert holds == (variant == "hi_lo" or shape != "main_short"), \
+        (shape, variant)
 
 
 # ----------------------------------------------------------------------
