@@ -35,11 +35,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      2048-page pool: a shared ~1000-token context, two requests per model,
      then a second turn that hits the prefix cache; launch counters are
      zeroed just before and read just after, and peak device memory must
-     stay within the weights, held once, plus the pool and 2 GiB. Then the
-     kernel API's path over the same base weights: layer 0's post-RoPE
-     q/k/v of the shared context through ``kernels.flash_attention``
-     (counters zeroed just before, read just after), held against the
-     port's dense ``models.attention.attention`` on the same q/k/v;
+     stay within the weights, held once, plus the pool and 2 GiB; TTFT and
+     ITL p50/p95 from ``engine.metrics()``, and ``render_prometheus()``
+     held to ``lint_prometheus``. Then the kernel API's path over the same
+     base weights: layer 0's post-RoPE q/k/v of the shared context through
+     ``kernels.flash_attention`` (counters zeroed just before, read just
+     after), held against the port's dense ``models.attention.attention``
+     on the same q/k/v. Then phase 8;
   5. the chunked main path: the same weights served by a new engine
      (``chunked=True``, 200-token chunks, a 512-token budget) over a fresh
      pool, phase 4's pool freed first; the same traffic. Every prefill goes
@@ -47,18 +49,42 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      the same memory bound; the chunk forwards are phase 2's shapes. The
      shared context's K/V against phase 4's, relative norm per layer, is
      held under a ceiling of (layer + 1) * 2**-8; how many greedy tokens
-     agree with phase 4 is printed, not asserted;
+     agree with phase 4 is printed, not asserted; metrics as in phase 4.
+     Then phase 9;
   6. the same two paths at full width in fp32, depth cut to 4 layers, same
      traffic: greedy tokens identical and context K/V within
-     ``FP32_KV_REL`` per layer;
+     ``FP32_KV_REL`` per layer. Then phase 10;
   7. device times: at the chunk shapes the kernels finish faster than the
      Python wrapper launches them, so back-to-back CUDA-event times measure
      the host. torch.profiler's records give the device time of the three
      attention kernels redesigned for the tensor cores (and of SDPA beside
      the paged ones) at the main shapes, ``paged_decode`` at both
-     ``DECODE_SHAPES``. Last, because the profiler leaves CUPTI active in
-     the process and slows every later launch, which would move phases
-     3-6's host-bound times.
+     ``DECODE_SHAPES``; then the sampler on logits of phase 8's step and
+     one decode step's LoRA merge over phase 9's base and adapters (kept
+     until here), in all and by kernel. Last, because the profiler leaves
+     CUPTI active in the process and slows every later launch, which would
+     move the host-bound times of phases 3-6 and 8-10;
+  8. (after phase 4) sampled requests (``SAMPLED``: temperature 0.8,
+     top_k 50, top_p 0.9, explicit seeds) over phase 4's weights and shared
+     context, each served alone, then packed with a greedy request and a
+     sampled request of each model (phase 4's turn-0 batch shape): sampled
+     tokens identical across the packings, the packed greedy rows equal to
+     phase 4's tokens, a ``seed=None`` request seeded with its request id;
+     the time the sampler adds to that step by CUDA events (its device time
+     in phase 7). Each serve gets a fresh pool (an empty prefix cache), so
+     every prefill has phase 4's shapes;
+  9. (after phase 5) four LoRA decode models (rank 16, alpha 32,
+     wq/wv/wo, seeded nonzero B) over phase 4's base at full width and
+     depth, the full decoders and phase 5's pool freed: one fused dispatch
+     per step, greedy and sampled; peak memory within the base held once,
+     the adapters, the pool, one layer's merged weights for the four lanes
+     and 2 GiB; the plane's ``param_bytes`` beside four full decoders'; a
+     step's wall time (the merge's device time in phase 7);
+  10. (after phase 6) four LoRA decode models at full width, depth cut to
+     4 layers, fp32 and bf16: tokens of the fused LoRA group == the
+     all-full plane of the materialized trees, and in fp32 also == the
+     per-model path (lazily materialized ``lora_apply``); in bf16 the
+     per-model path's agreement is printed, not asserted.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -107,6 +133,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def diff_ms(a, b):
+    """``a - b``, or None (not measured) when either is."""
+    return None if a is None or b is None else a - b
 
 
 # ======================================================================
@@ -938,6 +969,23 @@ def check_memory(eng, mem0, card, tag):
     assert peak <= mem0 + held + PEAK_SLACK_BYTES, (peak, mem0, held)
 
 
+def report_metrics(eng, card, tag):
+    """TTFT and ITL p50/p95 from ``engine.metrics()``, and the Prometheus
+    exposition held to ``metrics.lint_prometheus``."""
+    from repro_torch.serving.metrics import lint_prometheus
+    h = eng.metrics()["histograms"]
+    parts = []
+    for name in ("engine_ttft_seconds", "engine_itl_seconds"):
+        x = h[name]
+        assert x["count"] > 0, (name, x)
+        parts.append(f"{name} n={x['count']} p50 {x['p50']:.6f} s p95 "
+                     f"{x['p95']:.6f} s")
+    problems = lint_prometheus(eng.render_prometheus())
+    assert problems == [], problems
+    log(f"[{tag}] metrics: {'; '.join(parts)}; render_prometheus lints "
+        f"clean on {card}")
+
+
 def phase_main_path(card, n_layers: int):
     import torch
 
@@ -975,6 +1023,7 @@ def phase_main_path(card, n_layers: int):
                                                 free0)
     eng.block_pool.check_invariants()
     check_memory(eng, mem0, card, "main")
+    report_metrics(eng, card, "main")
     # no request handle is kept: each holds the engine, whose pool phase 5
     # frees
     return launches, dict(engine=eng, cfg=cfg, turns=turns,
@@ -1104,6 +1153,8 @@ def phase_chunked(card, eager: dict):
     assert all(r <= (i + 1) * 2 ** -8 for i, r in enumerate(rel)), rel
     log(f"[chunked] greedy tokens equal to the eager run's: {same} of "
         f"{total} (not asserted)")
+    report_metrics(eng, card, "chunked")
+    eager["base"] = eng.base_params            # phase 9's base, held once
     return launches
 
 
@@ -1164,11 +1215,15 @@ def phase_fp32_parity(card, n_layers: int):
 # phase 7
 
 
-def phase_device_times(card):
+def phase_device_times(card, lora):
     """Device time (``device_ms``) of the tensor-core kernels at the main
     shapes: ``paged_decode`` at both DECODE_SHAPES and ``flash_prefill_paged``
     at every MAIN_CHUNKS forward, each beside SDPA on pre-gathered dense
-    K/V, dense ``flash_prefill`` at FLASH_MAIN's bf16 shapes."""
+    K/V, dense ``flash_prefill`` at FLASH_MAIN's bf16 shapes. Then the
+    slice's plain-torch parts: the sampler on logits of phase 8's step
+    (what it adds to that step's device time) beside argmax, and one
+    decode step's LoRA merge over phase 9's base and adapters (``lora``),
+    in all and by kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -1229,6 +1284,402 @@ def phase_device_times(card):
             f"{fmt_ms(ms)} (torch.profiler) on {card}")
         del q, k, v
     torch.cuda.empty_cache()
+    slice6_device_times(card, lora)
+
+
+def slice6_device_times(card, lora):
+    """Phase 7's times of the sampler and of the LoRA merge."""
+    import torch
+
+    from repro_torch.core.lora import lora_lanes
+    from repro_torch.launch.timing import device_ms
+    from repro_torch.models.model import _layers
+    from repro_torch.serving.sampling import sample_step
+
+    cfg = lora["cfg"]
+    dev = lora["base"]["embed"].device
+    g = torch.Generator(device=dev).manual_seed(3)
+    lg = torch.randn((4, cfg.vocab_size), generator=g, device=dev) * 3
+    rows = (torch.full((4,), 1000, dtype=torch.int32, device=dev),
+            torch.full((4,), SAMPLED["temperature"], device=dev),
+            torch.full((4,), SAMPLED["top_k"], dtype=torch.int32, device=dev),
+            torch.full((4,), SAMPLED["top_p"], device=dev),
+            torch.arange(1, 5, dtype=torch.int32, device=dev))
+    t = {name: (cuda_ms(fn), device_ms(fn)) for name, fn in (
+        ("sample_step", lambda: sample_step(lg, *rows)),
+        ("argmax", lambda: lg.argmax(-1)))}
+    log(f"[device time] sampler on (4, {cfg.vocab_size}) fp32 logits "
+        f"({SAMPLED}): sample_step device {fmt_ms(t['sample_step'][1])}, "
+        f"CUDA events {fmt_ms(t['sample_step'][0])} (mean of 20); argmax "
+        f"device {fmt_ms(t['argmax'][1])}, events {fmt_ms(t['argmax'][0])} "
+        f"on {card}")
+
+    layers = list(zip(_layers(cfg, lora["base"], None),
+                      _layers(cfg, lora["ab"], None, axis=1)))
+    scale = LORA_ALPHA / LORA_RANK
+
+    def merge():
+        # one layer's lanes at a time, as in the step
+        for (lp, _), (ab, _) in layers:
+            lora_lanes(lp, ab, scale)
+    ms, ev = device_ms(merge, iters=3), cuda_ms(merge, iters=3, warmup=1)
+    top = device_kernels(merge)
+    log(f"[device time] LoRA merge of one decode step ({cfg.n_layers} "
+        f"layers x {len(LORA_MODELS)} lanes x wq/wv/wo, bf16): device "
+        f"{fmt_ms(ms)} (torch.profiler), {fmt_ms(ev)} by CUDA events; by "
+        f"kernel, device ms: "
+        f"{'; '.join(f'{n[:60]} {k:.3f} x{c}' for n, k, c in top)} on "
+        f"{card}")
+
+
+# ======================================================================
+# phase 8: sampled requests at full width (run after phase 4)
+
+
+#: the sampled requests' controls (the seeds are the phase's own)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+SAMPLED_SEEDS = {"m0": 1234, "m1": 5678}
+SAMPLED_TOKENS = 32
+
+
+def sampled_traffic(cfg):
+    """Phase 4's shared context and turn-0 greedy tails (m0: tails[0],
+    m1: tails[2]), and one private tail per seeded request."""
+    import numpy as np
+
+    from repro_torch.launch.main_path import PROMPT_TOKENS, TAIL_TOKENS, tokens
+    rng = np.random.default_rng(0)                 # serve_turns' draws
+    prompt = tokens(cfg, rng, PROMPT_TOKENS)
+    tails = [tokens(cfg, rng, TAIL_TOKENS) for _ in range(8)]
+    rng = np.random.default_rng(1)
+    own = {m: tokens(cfg, rng, TAIL_TOKENS) for m in SAMPLED_SEEDS}
+    return prompt, {"m0": tails[0], "m1": tails[2]}, own
+
+
+def fresh_engine(eager):
+    """Phase 4's weights in a new engine with a fresh pool (an empty
+    prefix cache, so every request prefills exactly as in phase 4); the
+    old engine and its pool are dropped."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import rebuild_engine
+    old = eager.pop("engine")
+    eng = rebuild_engine(old)
+    del old
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager["engine"] = eng
+    return eng
+
+
+def phase_sampled(card, eager):
+    """Seeded sampled requests (``SAMPLED``) on phase 4's weights, each
+    served twice: alone, then packed with a greedy request and a sampled
+    request of each model (a batch of phase 4's turn-0 shape: two models,
+    two rows each). Sampled tokens must be identical across the packings,
+    and the packed greedy rows must equal phase 4's greedy tokens. A
+    ``seed=None`` request draws with its request id as seed. Prints the
+    time the sampler adds to a decode step of the packed batch (same step,
+    every row greedy) by CUDA events; its device time is phase 7's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serving import SamplingParams
+
+    cfg = eager["cfg"]
+    prompt, greedy_tails, own = sampled_traffic(cfg)
+
+    def sp(seed):
+        return SamplingParams(max_tokens=SAMPLED_TOKENS, seed=seed, **SAMPLED)
+    eng = fresh_engine(eager)
+    alone = {}
+    with eng.shared_context(prompt) as ctx:
+        for m, seed in SAMPLED_SEEDS.items():
+            alone[m] = ctx.generate(m, own[m], sp(seed)).result().tolist()
+        anon = ctx.generate("m0", own["m0"], sp(None))
+        anon_toks = anon.result().tolist()
+    assert anon.params.seed == anon.request_id, anon.params
+    assert anon_toks != alone["m0"], "seed=None drew the seeded stream"
+    log(f"[sampled] {SAMPLED}, {SAMPLED_TOKENS} tokens each, alone: "
+        f"{ {m: t[:8] for m, t in alone.items()} } ...; seed=None request "
+        f"drew with seed {anon.params.seed} (its request id)")
+
+    eng = fresh_engine(eager)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    steps0 = eng.stats.decode_steps
+    with eng.shared_context(prompt) as ctx:
+        outs = {}
+        for m in SAMPLED_SEEDS:
+            outs["g" + m] = ctx.generate(m, greedy_tails[m],
+                                         SamplingParams(max_tokens=32))
+            outs["s" + m] = ctx.generate(m, own[m], sp(SAMPLED_SEEDS[m]))
+        for _ in range(4):
+            eng.step()
+        # the added device time of sampling: this batch's next step, then
+        # the same step with every row greedy (the KV writes repeat the
+        # step's own, so the run goes on unchanged)
+        seqs = list(eng.scheduler.active)
+        eng._grow_tail_pages(seqs)
+        greedy = [dataclasses.replace(s, params=SamplingParams(seed=0))
+                  for s in seqs]
+        plane = eng.decode_plane
+        assert len(seqs) == 4 and len(plane.groups) == 1
+        t = {name: cuda_ms(lambda: plane.groups[0].step(batch), iters=5,
+                           warmup=1)
+             for name, batch in (("sampled", seqs), ("greedy", greedy))}
+        eng.run()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    for m in SAMPLED_SEEDS:
+        assert outs["s" + m].tokens == alone[m], (m, outs["s" + m].tokens,
+                                                  alone[m])
+    g_ref = {"m0": eager["tokens"][0], "m1": eager["tokens"][2]}
+    for m in SAMPLED_SEEDS:
+        assert outs["g" + m].tokens == g_ref[m], (m, outs["g" + m].tokens,
+                                                  g_ref[m])
+    s = eng.stats()
+    assert launches["paged_decode"] >= cfg.n_layers * (s["decode_steps"]
+                                                       - steps0), launches
+    log(f"[sampled] packed with a greedy request of each model: sampled "
+        f"tokens == alone; greedy rows == phase 4's tokens; launches "
+        f"{launches} on {card}")
+    log(f"[sampled] decode step of the packed batch (B=4, vocab "
+        f"{cfg.vocab_size}): sampled {fmt_ms(t['sampled'])} / all-greedy "
+        f"{fmt_ms(t['greedy'])} by CUDA events (mean of 5, host launches "
+        f"included): the sampler adds {fmt_ms(t['sampled'] - t['greedy'])} "
+        f"on {card}")
+    torch.cuda.synchronize()
+
+
+# ======================================================================
+# phase 9: four LoRA decode models over the base (run after phase 5)
+
+
+LORA_MODELS = ("l0", "l1", "l2", "l3")
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_B_SCALE = 0.01                    # B ~ N(0, 1) * this (nonzero)
+LORA_TOKENS = 16
+
+
+def lora_adapters(base, seed: int):
+    """``lora_init`` adapters (rank 16, wq/wv/wo) for ``LORA_MODELS``, with
+    B drawn nonzero, all from one seeded generator on the base's device."""
+    import torch
+
+    from repro_torch.core.lora import LoRAPair, lora_init
+    from repro_torch.serving import LoRAAdapter
+
+    dev = base["embed"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def nonzero_b(pair):
+        b = torch.randn(pair.B.shape, generator=g, device=dev)
+        return LoRAPair(pair.A, (b * LORA_B_SCALE).to(pair.B.dtype))
+    ads = {}
+    for m in LORA_MODELS:
+        tree = lora_init(base, rank=LORA_RANK, generator=g)
+        ads[m] = LoRAAdapter(_map_pairs(nonzero_b, tree), alpha=LORA_ALPHA,
+                             rank=LORA_RANK)
+    return ads
+
+
+def _map_pairs(fn, node):
+    from repro_torch.core.lora import LoRAPair
+    if isinstance(node, LoRAPair):
+        return fn(node)
+    if isinstance(node, dict):
+        return {k: _map_pairs(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_pairs(fn, v) for v in node]
+    return node
+
+
+def lora_serve(eng, cfg, sampled_models=("l1", "l3")):
+    """Phase 4's shared context, one request per LoRA model (32-token
+    tails), greedy for two models and sampled for the other two; returns
+    the tokens per model."""
+    import numpy as np
+
+    from repro_torch.launch.main_path import PROMPT_TOKENS, TAIL_TOKENS, tokens
+    from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(0)
+    prompt = tokens(cfg, rng, PROMPT_TOKENS)
+    rng = np.random.default_rng(2)
+    with eng.shared_context(prompt) as ctx:
+        outs = {m: ctx.generate(m, tokens(cfg, rng, TAIL_TOKENS),
+                                SamplingParams(max_tokens=LORA_TOKENS,
+                                               seed=11 + i,
+                                               **(SAMPLED if m in
+                                                  sampled_models else {})))
+                for i, m in enumerate(LORA_MODELS)}
+        eng.run()
+    return {m: o.tokens for m, o in outs.items()}
+
+
+def device_kernels(fn, top: int = 8):
+    """One call of ``fn`` under torch.profiler: its kernels' device time
+    summed by name, the ``top`` largest as (name, ms, launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms, n = by.get(ev.name, (0.0, 0))
+            by[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in by.items()),
+                  key=lambda r: -r[1])[:top]
+
+
+def phase_lora(card, eager):
+    """Four LoRA decode models (rank 16, alpha 32, wq/wv/wo, seeded nonzero
+    B) over phase 4's base at full width and depth, after the full
+    decoders and phase 5's pool are gone: one fused dispatch per step, peak
+    memory within the base held once, the adapters, the pool, one layer's
+    merged weights for the four lanes and 2 GiB. Prints the plane's
+    ``param_bytes`` beside four full decoders' bytes and the step's wall
+    time. Returns the base and the stacked adapters, with which phase 7
+    times one step's merge."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import (NUM_PAGES, PAGE_SIZE,
+                                              resident_bytes)
+    from repro_torch.models.model import _layers
+    from repro_torch.params import tree_leaves
+    from repro_torch.serving import DecodeModelSpec, LocalDisaggEngine
+
+    cfg, base = eager["cfg"], eager.pop("base")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    base_bytes = sum(x.nbytes for x in tree_leaves(base))
+    ads = lora_adapters(base, 7)
+    eng = LocalDisaggEngine(cfg, base, device=base["embed"].device,
+                            num_pages=NUM_PAGES, page_size=PAGE_SIZE)
+    for m, ad in ads.items():
+        eng.models.register(m, DecodeModelSpec(lora=ad))
+    eng.models.sync()
+    plane = eng.decode_plane
+    assert len(plane.groups) == 1 and plane.groups[0].lora
+    (group,) = plane.groups
+    lp, _ = next(_layers(cfg, base, None))
+    merged_layer = len(LORA_MODELS) * sum(
+        lp["attn"][k].nbytes for k in ("wq", "wv", "wo"))
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = lora_serve(eng, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in fns.items()}
+    s = eng.stats()
+    assert s["decode_dispatches"] == s["decode_steps"] > 0, s
+    assert launches["paged_decode"] == cfg.n_layers * s["decode_steps"], \
+        (launches, s)
+    assert s["relay_publishes"] == 0 and s["relay_skipped"] == 4, s
+    for m, toks in got.items():
+        assert len(toks) == LORA_TOKENS, (m, toks)
+        assert all(0 <= t < cfg.vocab_size for t in toks), (m, toks)
+    peak = torch.cuda.max_memory_allocated()
+    held = resident_bytes(eng)                 # base + adapters + pool
+    log(f"[lora] {len(LORA_MODELS)} LoRA decoders (rank {LORA_RANK}, alpha "
+        f"{LORA_ALPHA}, wq/wv/wo) over {cfg.name} {cfg.n_layers} layers "
+        f"{cfg.dtype}: {s['decode_steps']} fused steps, one dispatch each, "
+        f"{wall:.3f} s; launches {launches}; plane param_bytes "
+        f"{plane.param_bytes()} B beside {len(LORA_MODELS)} full decoders' "
+        f"{len(LORA_MODELS) * base_bytes} B; tokens "
+        f"{ {m: t[:6] for m, t in got.items()} } ... on {card}")
+    log(f"[lora] max_memory_allocated {peak} B; base + adapters + pool "
+        f"{held} B; one layer's merged weights for {len(LORA_MODELS)} lanes "
+        f"{merged_layer} B; allocated before (the base) {mem0} B")
+    assert plane.param_bytes() == sum(
+        x.nbytes for ad in ads.values() for x in tree_leaves(ad.params))
+    assert peak <= mem0 - base_bytes + held + merged_layer \
+        + PEAK_SLACK_BYTES, (peak, mem0, held, merged_layer)
+
+    log(f"[lora] a LoRA decode step took "
+        f"{fmt_ms(1e3 * wall / s['decode_steps'])} of wall time on average "
+        f"(prefills included) on {card}")
+    # the base and the adapters stay for phase 7's device time of a merge
+    return dict(cfg=cfg, base=base, ab=group.stacked["ab"])
+
+
+# ======================================================================
+# phase 10: the LoRA identity at 4 layers, full width, fp32 and bf16
+
+
+def phase_lora_identity(card, n_layers: int):
+    """Four LoRA decode models at full width, depth cut, in fp32 and bf16:
+    tokens of the fused LoRA group (in-step merge) == the all-full plane
+    given the ``lora_apply`` trees, and in fp32 == the per-model path
+    (``fused=False``, lazily materialized ``lora_apply``); greedy and
+    sampled."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.lora import lora_apply
+    from repro_torch.launch.main_path import MODEL, NUM_PAGES, PAGE_SIZE
+    from repro_torch.models import init_params
+    from repro_torch.serving import DecodeModelSpec, LocalDisaggEngine
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(MODEL), n_layers=n_layers,
+                                  dtype=dtype)
+        base = init_params(cfg, 0)
+        ads = lora_adapters(base, 8)
+        got = {}
+        for mode in ("lora", "per-model", "full"):
+            eng = LocalDisaggEngine(cfg, base, device=base["embed"].device,
+                                    num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                                    fused=mode != "per-model")
+            for m, ad in ads.items():
+                spec = (DecodeModelSpec(lora=ad) if mode != "full" else
+                        DecodeModelSpec(full=lora_apply(
+                            base, ad.params, alpha=ad.alpha, rank=ad.rank)))
+                eng.models.register(m, spec)
+            got[mode] = lora_serve(eng, cfg)
+            if mode == "lora":
+                assert eng.decoders["l0"]._dec_params is None
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        n = sum(map(len, got["lora"].values()))
+        # the in-step merge is bit-equal to lora_apply: the LoRA group and
+        # the all-full plane run the same fused step on the same weights
+        assert got["lora"] == got["full"], got
+        same = sum(a == b for m in LORA_MODELS
+                   for a, b in zip(got["lora"][m], got["per-model"][m]))
+        if dtype == "float32":
+            assert same == n, got
+        log(f"[lora {dtype}] {cfg.name} {n_layers} layers: fused LoRA group "
+            f"tokens == all-full plane of the materialized trees: all {n}, "
+            f"greedy and sampled; == fused=False (lora_apply, one forward "
+            f"per model): {same} of {n}"
+            + ("" if dtype == "float32" else
+               " (not asserted in bf16: the per-model step's products have "
+               "other row and lane counts than the fused step's, which "
+               "cuBLAS rounds differently)"))
+        del base, ads
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ======================================================================
@@ -1260,10 +1711,13 @@ def main() -> int:
     phase_toy_engine()
     eager_launches, eager = phase_main_path(card, n_layers)
     api_launches = phase_kernel_api(card, eager)
+    phase_sampled(card, eager)
     chunked_launches = phase_chunked(card, eager)
+    lora = phase_lora(card, eager)
     del eager
     phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
-    phase_device_times(card)
+    phase_lora_identity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
+    phase_device_times(card, lora)
 
     # each kernel with its launches on the path that runs it: the eager
     # main path (phase 4) for paged_decode and paged_write, the kernel API

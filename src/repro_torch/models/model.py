@@ -37,7 +37,7 @@ def _check_supported(cfg: ModelConfig) -> None:
             or cfg.is_encdec or cfg.input_mode != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: only global-attention token decoders are ported; "
-            f"dense-fallback archs arrive in port slice 5")
+            f"the dense fallback for other archs is not ported yet")
 
 
 # ======================================================================
@@ -165,9 +165,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
 
 def _layer_slice(tree, layer: int, axis: int):
     """Layer ``layer`` of a stacked group subtree (a view, no copy); ``axis`` is
-    1 when the leaves also carry a leading model axis."""
+    1 when the leaves also carry a leading model axis. None (an adapter
+    tree's untargeted weight) stays None; an adapter pair keeps its type."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _layer_slice(v, layer, axis) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_layer_slice(v, layer, axis) for v in tree))
     return tree.select(axis, layer)
 
 
@@ -235,10 +240,15 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
 
 
 def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
-                   v_layers, block_tables, rows=None):
+                   v_layers, block_tables, rows=None, lanes=None):
     """The fused decode plane's step: ONE forward for M stacked decoders.
 
-    stacked: a param tree whose every leaf has a leading model axis M.
+    stacked: a param tree whose every leaf has a leading model axis M; or,
+    with ``lanes`` given (a LoRA group), ``{"base": tree, "ab": adapters}``:
+    the base tree has no model axis and every lane reads it, the adapters
+    are stacked on M, and ``lanes(layer params, layer adapters)`` gives each
+    layer's weights for the M lanes just before the layer runs
+    (``core.lora.lora_lanes``), so merged weights exist one layer at a time.
     tokens, pos: (M, Bmax) int (row (m, b) feeds decoder m; padding rows
     carry pos 0 and a block table of sentinel page 0). k/v_layers: each
     layer's (P, page, Hkv, D) pool pages in execution order, shared by all
@@ -251,12 +261,22 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
     fp32 logits."""
     _check_supported(cfg)
     M, Bmax = tokens.shape
-    mid = torch.arange(M, device=tokens.device)[:, None]
-    x = _embed(cfg, stacked["embed"], (mid, tokens.long()))   # (M, Bmax, d)
+    if lanes is None:
+        top = stacked
+        mid = torch.arange(M, device=tokens.device)[:, None]
+        x = _embed(cfg, top["embed"], (mid, tokens.long()))   # (M, Bmax, d)
+        layers = ((lp, None) for lp, _ in _layers(cfg, stacked, None, axis=1))
+    else:
+        top = stacked["base"]                # untargeted: the one base copy
+        x = _embed(cfg, top["embed"], tokens)
+        layers = ((lp, ab) for (lp, _), (ab, _) in zip(
+            _layers(cfg, top, None), _layers(cfg, stacked["ab"], None,
+                                             axis=1)))
     flat_pos = pos.reshape(-1)
     hq, hd = cfg.n_heads, cfg.head_dim
-    layers = _layers(cfg, stacked, None, axis=1)
-    for (lp, _), kp, vp in zip(layers, k_layers, v_layers):
+    for (lp, ab), kp, vp in zip(layers, k_layers, v_layers):
+        if lanes is not None:
+            lp = lanes(lp, ab)     # this layer's merged lanes, dropped below
         ap = lp["attn"]
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(ap, h, cfg, pos)       # (M, Bmax, H, D)
@@ -267,6 +287,7 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
         x = x + o.reshape(M, Bmax, hq * hd) @ ap["wo"]
         if "norm2" in lp:
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
-    x = rmsnorm(x, stacked["final_norm"], cfg.norm_eps)
-    table = stacked.get("unembed", stacked["embed"])
+        del lp, ap          # before the next layer merges its own lanes
+    x = rmsnorm(x, top["final_norm"], cfg.norm_eps)
+    table = top.get("unembed", top["embed"])
     return unembed(x, table, cfg.final_softcap)

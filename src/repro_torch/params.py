@@ -19,17 +19,28 @@ from repro_torch.device import resolve_device
 
 
 def tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of structurally identical trees."""
+    """Map ``fn`` over the leaves of structurally identical trees. None is
+    an empty node, as in jax (an adapter tree's untargeted positions), and
+    stays None."""
     t0 = trees[0]
+    if t0 is None:
+        if any(t is not None for t in trees):
+            raise ValueError("tree structures differ: None against a node")
+        return None
     if isinstance(t0, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (list, tuple)):
-        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+        mapped = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t0)(*mapped) if hasattr(t0, "_fields") \
+            else type(t0)(mapped)               # NamedTuple (LoRAPair)
     return fn(*trees)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves in the reference's order (``jax.tree.leaves`` sorts dict keys)."""
+    """Leaves in the reference's order (``jax.tree.leaves`` sorts dict keys
+    and drops None)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -54,6 +65,33 @@ def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
     leading axis are kept; ``dtype`` optionally casts floating leaves."""
     dev = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, dev, dtype), tree)
+
+
+def adapters_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
+    """A reference adapter tree (``lora_init``'s layout: a ``LoRAPair`` or an
+    ``{"A", "B"}`` dict at each targeted weight, None elsewhere, leaves as
+    numpy arrays) -> the port's, with ``core.lora.LoRAPair`` at the targeted
+    positions, on ``device`` (the card by default)."""
+    # imported here: core.lora imports this module (tree_map)
+    from repro_torch.core.lora import LoRAPair
+    dev = resolve_device(device)
+
+    def conv(node):
+        if node is None:
+            return None
+        pair = None
+        if getattr(node, "_fields", None) == ("A", "B"):
+            pair = tuple(node)
+        elif isinstance(node, dict) and set(node) == {"A", "B"}:
+            pair = (node["A"], node["B"])
+        if pair is not None and all(hasattr(a, "shape") for a in pair):
+            return LoRAPair(*(_to_tensor(a, dev, dtype) for a in pair))
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        raise TypeError(f"not an adapter tree node: {type(node)}")
+    return conv(tree)
 
 
 def load_npz(path: str) -> dict:

@@ -12,9 +12,10 @@ shared prompt — is what this module makes the API's main verb:
 
 Pieces:
   - ``SamplingParams``: per-request decoding controls (temperature / top_k /
-    top_p / seed / max_tokens / stop & EOS ids). The port serves
-    ``temperature=0`` (exact greedy argmax) so far; the engine refuses
-    ``temperature > 0`` until the sampling slice lands.
+    top_p / seed / max_tokens / stop & EOS ids), executed in the decode
+    step (serving/sampling.py). ``temperature=0`` (the default) is exact
+    greedy argmax; seeded sampling is reproducible regardless of batch
+    packing (keys fold from (seed, pos)).
   - ``RequestOutput``: a live handle. Tokens stream in as the engine steps —
     iterate it (drives the engine), register callbacks, or call ``result()``
     to drive to completion. Carries the finish reason (eos/stop/length/

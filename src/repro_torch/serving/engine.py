@@ -23,15 +23,23 @@ task-specific decode models read that KV with no copy.
     per engine step in ONE forward over the stacked decoder weights
     (``serving.decode``; ``fused=False`` runs one forward per model), with
     attention by the ``paged_decode`` kernel and the new K/V appended to
-    private pages. Greedy (temperature 0) tokens.
+    private pages. Tokens are sampled per request (``SamplingParams``;
+    temperature 0 is exact greedy), keys folded from (seed, position).
   - finish: pages are released; with relay on, a relay-compatible
     decoder's decode-written pages are published into the radix tree keyed
     by the full token stream, so a later prompt that extends it starts
     prefill past the finished output.
 
+Decode models are full fine-tunes (``DecodeModelSpec(full=...)``) or LoRA
+adapters over the engine's base weights (``DecodeModelSpec(lora=...)``).
+``metrics=True`` (the default) publishes latency histograms, gauges and
+per-request traces into one ``MetricsRegistry`` (``engine.metrics()``,
+``engine.render_prometheus()``); ``engine.stats`` is a view over its
+counters either way.
+
 ``LocalDisaggEngine(..., device=None)`` runs on the card; pass
-``device="cpu"`` for the plain PyTorch versions of the kernels. Options that
-later port slices bring raise ``NotImplementedError`` naming the slice.
+``device="cpu"`` for the plain PyTorch versions of the kernels. Options not
+ported yet raise ``NotImplementedError`` naming the feature.
 """
 from __future__ import annotations
 
@@ -56,7 +64,11 @@ from repro_torch.serving.api import (FINISH_ABORT, FINISH_LENGTH,
                                      RequestOutput, SamplingParams,
                                      SharedContext)
 from repro_torch.serving.backpressure import ThroughputEWMA
-from repro_torch.serving.decode import FusedDecodePlane, next_pow2
+from repro_torch.serving.decode import (FusedDecodePlane, next_pow2,
+                                        next_tokens)
+from repro_torch.serving.metrics import (SPAN_FIRST_TOKEN, SPAN_HANDOFF,
+                                         SPAN_ROUTED, SPAN_TOKEN,
+                                         MetricsRegistry)
 from repro_torch.serving.registry import ModelRegistry, as_spec
 from repro_torch.serving.router import PrefillRouter
 from repro_torch.serving.scheduler import (ChunkedScheduler, Request,
@@ -92,24 +104,84 @@ class DecodeSeq:
     first0: int = 2               # the handoff's first decode input token
 
 
-@dataclass
+class _CounterField:
+    """EngineStats field backed by a registry ``Counter``: reads return
+    ints, writes (``+= n``, ``= 0``) go to the counter cell, so
+    ``engine.stats`` and ``engine.metrics()`` are the same numbers."""
+
+    __slots__ = ("prom", "help", "name")
+
+    def __init__(self, prom: str, help: str = ""):
+        self.prom = prom
+        self.help = help
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        return int(obj._cells[self.name].value)
+
+    def __set__(self, obj, v):
+        obj._cells[self.name].value = float(v)
+
+
 class EngineStats:
-    """Engine counters (plain integers; the metrics registry and its
-    Prometheus export arrive with the serving-features slice)."""
-    prefill_tokens_computed: int = 0
-    prefill_tokens_reused: int = 0
-    handoffs: int = 0
-    handoff_bytes: int = 0
-    cow_page_copies: int = 0
-    decode_steps: int = 0
-    decode_tokens: int = 0
-    decode_dispatches: int = 0
-    model_churn_events: int = 0
-    plane_rebuilds: int = 0
-    relay_publishes: int = 0
-    relay_pages_published: int = 0
-    relay_skipped: int = 0
-    _engine: object = field(default=None, repr=False, compare=False)
+    """Engine counters, a VIEW over the metrics registry: each field is a
+    registry counter cell (real even with metrics off)."""
+
+    prefill_tokens_computed = _CounterField(
+        "engine_prefill_tokens_computed_total",
+        "prompt tokens actually run through the base prefill model")
+    prefill_tokens_reused = _CounterField(
+        "engine_prefill_tokens_reused_total",
+        "prompt tokens served from cached prefix KV (never recomputed)")
+    handoffs = _CounterField(
+        "engine_handoffs_total", "prefill->decode cache handoffs")
+    handoff_bytes = _CounterField(
+        "engine_handoff_bytes_total",
+        "handoff wire bytes (paged: block-table metadata only)")
+    cow_page_copies = _CounterField(
+        "engine_cow_page_copies_total",
+        "partial tail pages cloned at handoff (page-level copy-on-write)")
+    decode_steps = _CounterField(
+        "engine_decode_steps_total", "engine decode steps")
+    decode_tokens = _CounterField(
+        "engine_decode_tokens_total", "tokens generated across all sequences")
+    decode_dispatches = _CounterField(
+        "engine_decode_dispatches_total", "decode forwards issued")
+    model_churn_events = _CounterField(
+        "engine_model_churn_events_total",
+        "accepted register/unregister mutations")
+    plane_rebuilds = _CounterField(
+        "engine_plane_rebuilds_total",
+        "fused-plane relayouts applied at step boundaries")
+    relay_publishes = _CounterField(
+        "engine_relay_publishes_total",
+        "finished sequences whose decode KV entered the prefix tree")
+    relay_pages_published = _CounterField(
+        "engine_relay_pages_published_total",
+        "decode-written pages adopted into the radix tree at finish")
+    relay_skipped = _CounterField(
+        "engine_relay_skipped_total",
+        "finished sequences not published (relay-incompatible decoder)")
+
+    FIELDS = ("prefill_tokens_computed", "prefill_tokens_reused", "handoffs",
+              "handoff_bytes", "cow_page_copies", "decode_steps",
+              "decode_tokens", "decode_dispatches", "model_churn_events",
+              "plane_rebuilds", "relay_publishes", "relay_pages_published",
+              "relay_skipped")
+
+    def __init__(self, _engine: object = None,
+                 registry: MetricsRegistry | None = None):
+        self._engine = _engine
+        self.registry = MetricsRegistry() if registry is None else registry
+        cls = type(self)
+        self._cells = {
+            name: self.registry.counter(cls.__dict__[name].prom,
+                                        cls.__dict__[name].help)
+            for name in self.FIELDS}
 
     @property
     def hit_ratio(self) -> float:
@@ -124,8 +196,7 @@ class EngineStats:
         """ONE engine-wide stats surface: the counters, plus the per-worker
         prefix-hit accounting rolled up (``CacheStats.merge``) and the
         pool's occupancy."""
-        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-             if not f.name.startswith("_")}
+        d = {name: getattr(self, name) for name in self.FIELDS}
         d["hit_ratio"] = self.hit_ratio
         d["decode_batch_mean"] = self.decode_batch_mean
         eng = self._engine
@@ -157,8 +228,10 @@ class PrefillWorker:
     engine's SHARED page pool and SHARED radix tree, so a prefix published
     by any worker is a hit on every worker."""
 
-    def __init__(self, cfg: ModelConfig, base_params, kvpool: PagedKVPool,
-                 block_pool: BlockPool, stats: EngineStats, index=None):
+    def __init__(self, wid: int, cfg: ModelConfig, base_params,
+                 kvpool: PagedKVPool, block_pool: BlockPool,
+                 stats: EngineStats, index=None):
+        self.wid = wid                # index in the pool (trace spans)
         self.cfg = cfg
         self.base_params = base_params
         self.kvpool = kvpool
@@ -224,27 +297,48 @@ class PrefillWorker:
 
 class DecodeWorker:
     """ONE task-specific decode module: its spec, the schema it was trained
-    against, and the per-model step of the ``fused=False`` path."""
+    against, and the per-model step of the ``fused=False`` path. Its full
+    weights materialize lazily: a LoRA spec pays for ``lora_apply`` only if
+    the per-model path runs it; the fused plane reads the factors."""
 
     #: may this model's decode-written KV be relay-published? Set by the
     #: engine at attach time (KV path identical to the frozen base).
     relay_compatible = False
 
     def __init__(self, cfg: ModelConfig, model_id: str, spec,
-                 expected_schema):
+                 expected_schema, base_params=None):
         self.cfg = cfg
         self.model_id = model_id
         self.spec = as_spec(spec)
+        self.base_params = base_params
         self.expected_schema = expected_schema
+        self._dec_params = None
+
+    @property
+    def dec_params(self):
+        if self._dec_params is None:
+            self._dec_params = self.spec.materialize(self.base_params)
+        return self._dec_params
 
     @torch.no_grad()
-    def step(self, tokens, pos, cache):
-        """One batched greedy decode step over a paged cache: feed
-        ``tokens`` (B,) at positions ``pos`` (B,); the pool pages in
-        ``cache`` are written in place. Returns next tokens (B,)."""
-        logits, _ = forward(self.cfg, self.spec.full, tokens[:, None],
+    def step(self, seqs, kvpool) -> list:
+        """Advance ``seqs`` (all of this model) one token in one batched
+        forward over the paged pool, whose pages are written in place;
+        returns the next tokens, sampled per their SamplingParams (greedy at
+        temperature 0). Tail pages must already cover position ``pos``."""
+        # pow2-bucket the table width: padded columns lie past every
+        # sequence's length, so this is token-identical
+        npages = next_pow2(max(len(s.block_table) for s in seqs))
+        bt = np.zeros((len(seqs), npages), np.int32)
+        for i, s in enumerate(seqs):
+            bt[i, :len(s.block_table)] = s.block_table
+        dev = kvpool.device
+        toks = torch.tensor([s.next_token for s in seqs], dtype=torch.int32)
+        pos = torch.tensor([s.pos for s in seqs], dtype=torch.int32).to(dev)
+        cache = kvpool.make_decode_cache(torch.from_numpy(bt).to(dev))
+        logits, _ = forward(self.cfg, self.dec_params, toks.to(dev)[:, None],
                             cache=cache, pos=pos)
-        return logits.argmax(-1)
+        return next_tokens(logits, seqs, dev)
 
 
 # ======================================================================
@@ -273,21 +367,22 @@ class LocalDisaggEngine:
                  chunked: bool = False, token_budget: int = 256,
                  chunk_size: int = 64, sched_policy: str = "fcfs",
                  fused: bool | None = None, prefix_cache: bool = True,
-                 relay: bool = True, autoscale=None, sanitize: bool = False,
-                 preempt: bool = False):
+                 relay: bool = True, metrics: bool = True, autoscale=None,
+                 sanitize: bool = False, preempt: bool = False):
         self.device = resolve_device(device)
         if autoscale is not None:
-            raise NotImplementedError("autoscale: port slice 4 "
-                                      "(serving features)")
+            raise NotImplementedError("autoscaling (autoscale=...) is not "
+                                      "ported yet")
         if preempt:
-            raise NotImplementedError("preempt=True: port slice 4 "
-                                      "(serving features)")
+            raise NotImplementedError("preemption (preempt=True) is not "
+                                      "ported yet")
         if sanitize:
-            raise NotImplementedError("sanitize=True: port slice 7 "
-                                      "(simulator and tools)")
+            raise NotImplementedError("the pool sanitizer (sanitize=True) "
+                                      "is not ported yet")
         if paged is False or not PagedKVPool.supports(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the dense (non-paged) fallback: port slice 5")
+                f"{cfg.name}: the dense (non-paged) fallback is not ported "
+                f"yet")
         leaf = tree_leaves(base_params)[0]
         if leaf.device != self.device:
             raise ValueError(f"base_params live on {leaf.device}, the engine "
@@ -296,7 +391,14 @@ class LocalDisaggEngine:
         self.base_params = base_params
         self.page_size = page_size
         self.chunked = chunked
-        self.stats = EngineStats(_engine=self)
+        # ONE registry the engine and scheduler publish into.
+        # metrics=False degrades histograms/gauges/traces to shared no-op
+        # singletons (the decode loop skips observation via _metrics_on);
+        # counters stay real because stats() runs on them
+        self._metrics_on = metrics
+        self.metrics_registry = MetricsRegistry(enabled=metrics)
+        self.stats = EngineStats(_engine=self,
+                                 registry=self.metrics_registry)
         self.schema = cache_schema(cfg, base_params, capacity)
         self.handoff = HandoffChannel(cfg)
         self.router = PrefillRouter(n_prefill_workers, router_policy)
@@ -315,9 +417,10 @@ class LocalDisaggEngine:
         else:
             self.prefix_index = NullPrefixIndex(page_size)
         self.prefill_workers = [
-            PrefillWorker(cfg, base_params, self.kvpool, self.block_pool,
-                          self.stats, index=self.prefix_index)
-            for _ in range(n_prefill_workers)]
+            PrefillWorker(i, cfg, base_params, self.kvpool,
+                          self.block_pool, self.stats,
+                          index=self.prefix_index)
+            for i in range(n_prefill_workers)]
         self.fused = True if fused is None else fused
         self.scheduler = ChunkedScheduler(
             self, SchedulerConfig(token_budget=token_budget,
@@ -338,6 +441,7 @@ class LocalDisaggEngine:
         self._next_rid = 0
         self._next_seq = 0                             # arrival order
         self._next_ctx_sid = 1 << 40
+        self._init_metrics()
 
     #: half-life of the issued-work router signal, in seconds of wall time
     BACKLOG_HALFLIFE_S = 0.25
@@ -369,7 +473,90 @@ class LocalDisaggEngine:
                 cold_s.append(w.ewma.backlog_seconds(cold))
         picked = self.router.pick(sid, now, backlogs, cold_s,
                                   handoff_s=self.handoff.estimate_paged_s())
+        if self._metrics_on:
+            self._c_router_picks.inc()
+            if picked != sid % len(self.prefill_workers):
+                self._c_router_nonhome.inc()
         return self.prefill_workers[picked]
+
+    # ------------------------------------------------------------------
+    # observability (serving/metrics.py)
+    # ------------------------------------------------------------------
+    def _init_metrics(self) -> None:
+        """Bind the engine's instruments: histograms up front (hot paths
+        hold direct references), gauges as collectors sampled only at
+        export time. Preemption, swap and autoscale instruments come with
+        those features."""
+        reg = self.metrics_registry
+        self._h_ttft = reg.histogram(
+            "engine_ttft_seconds", "submit -> first streamed token",
+            lo=1e-5, hi=600.0)
+        self._h_itl = reg.histogram(
+            "engine_itl_seconds", "gap between consecutive streamed tokens",
+            lo=1e-6, hi=60.0)
+        self._h_queue = reg.histogram(
+            "engine_queue_depth", "waiting+prefilling requests, per step",
+            lo=1.0, hi=4096.0, growth=1.5)
+        self._h_occ = reg.histogram(
+            "engine_page_occupancy",
+            "non-free pool page fraction, per step", lo=1e-3, hi=1.0)
+        self._h_batch = reg.histogram(
+            "engine_decode_batch", "sequences per decode step",
+            lo=1.0, hi=4096.0, growth=1.5)
+        self._h_handoff_s = reg.histogram(
+            "engine_handoff_seconds",
+            "measured prefill->decode handoff wall time", lo=1e-7, hi=10.0)
+        self._h_handoff_b = reg.histogram(
+            "engine_handoff_plan_bytes", "handoff metadata bytes",
+            lo=1.0, hi=1e9, growth=2.0)
+        self._c_router_picks = reg.counter(
+            "engine_router_picks_total", "prefill routing decisions")
+        self._c_router_nonhome = reg.counter(
+            "engine_router_nonhome_picks_total",
+            "routing decisions away from the session's home worker")
+        reg.gauge("engine_prefill_workers", "live prefill workers",
+                  fn=lambda: len(self.prefill_workers))
+        reg.gauge("engine_waiting_requests", "requests awaiting admission",
+                  fn=lambda: len(self.scheduler.waiting))
+        reg.gauge("engine_prefilling_requests", "requests mid-prefill",
+                  fn=lambda: len(self.scheduler.prefilling))
+        reg.gauge("engine_active_sequences", "sequences decoding",
+                  fn=lambda: len(self.scheduler.active))
+        reg.gauge("engine_pool_free_pages", "free pool pages",
+                  fn=lambda: self.block_pool.free_count)
+        reg.gauge("engine_pool_active_pages", "refcount-held pool pages",
+                  fn=lambda: self.block_pool.active_count)
+        reg.gauge("engine_pool_cached_pages",
+                  "LRU-cached (evictable) pool pages",
+                  fn=lambda: self.block_pool.cached_count)
+        reg.gauge("engine_prefix_nodes", "radix prefix-index nodes",
+                  fn=lambda: len(self.prefix_index))
+        reg.gauge("engine_relay_nodes",
+                  "radix nodes holding decode-written (relay) KV",
+                  fn=lambda: self.prefix_index.relay_nodes)
+
+    def metrics(self) -> dict:
+        """The observability surface as dicts: ``{"counters", "gauges",
+        "histograms"}`` (histograms with count/sum/mean/min/max/p50/p95/p99)
+        plus ``"traces"``, the retained per-request lifecycle traces."""
+        out = self.metrics_registry.snapshot()
+        out["traces"] = [t.as_dict() for t in self.metrics_registry.traces()]
+        return out
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition of every registered metric (checked by
+        ``metrics.lint_prometheus``)."""
+        return self.metrics_registry.render_prometheus()
+
+    def _observe_step(self) -> None:
+        """Per-step queue-depth and pool-occupancy samples (the scheduler
+        calls this at every step boundary); nothing when metrics are off."""
+        if not self._metrics_on:
+            return
+        sched = self.scheduler
+        self._h_queue.observe(len(sched.waiting) + len(sched.prefilling))
+        pool = self.block_pool
+        self._h_occ.observe(1.0 - pool.free_count / pool.num_blocks)
 
     # ------------------------------------------------------------------
     # model lifecycle (driven by ModelRegistry)
@@ -381,7 +568,11 @@ class LocalDisaggEngine:
     def _relay_compatible(self, spec) -> bool:
         """May ``spec``'s decode-written KV be republished as shared prefix?
         Only if its KV path is the frozen base model's: the base weights
-        themselves, or equal to them outside the KV-neutral leaves."""
+        themselves, or equal to them outside the KV-neutral leaves. LoRA
+        adapters perturb the attention weights, so their KV is theirs
+        alone."""
+        if spec.full is None:
+            return False
         if spec.full is self.base_params:
             return True
         base = list(_param_paths(self.base_params))
@@ -398,11 +589,16 @@ class LocalDisaggEngine:
     def _attach_decoder(self, model_id: str, spec) -> None:
         """Registry hook: make ``model_id`` servable now (the fused plane
         picks it up at the next step boundary)."""
-        leaf = tree_leaves(as_spec(spec).full)[0]
-        if leaf.device != self.device:
-            raise ValueError(f"decoder {model_id!r} lives on {leaf.device}, "
-                             f"the engine on {self.device}")
-        dw = DecodeWorker(self.cfg, model_id, spec, self.schema)
+        spec = as_spec(spec)
+        leaves = (tree_leaves(spec.full)[:1] if spec.full is not None
+                  else tree_leaves(spec.lora.params))
+        for leaf in leaves:
+            if leaf.device != self.device:
+                raise ValueError(f"decoder {model_id!r} lives on "
+                                 f"{leaf.device}, the engine on "
+                                 f"{self.device}")
+        dw = DecodeWorker(self.cfg, model_id, spec, self.schema,
+                          self.base_params)
         dw.relay_compatible = self._relay_compatible(dw.spec)
         self.decoders[model_id] = dw
 
@@ -419,7 +615,7 @@ class LocalDisaggEngine:
         self.decode_plane = FusedDecodePlane(
             {mid: (self.cfg, spec)
              for mid, spec in self.models._specs.items()},
-            self.kvpool,
+            self.kvpool, self.base_params,
             dispatches0=old.dispatches if old is not None else 0)
         if old is not None:
             self.stats.plane_rebuilds += 1
@@ -465,9 +661,15 @@ class LocalDisaggEngine:
             bt = bt[:-1] + [fresh]
             self.stats.cow_page_copies += 1
         plan = self.handoff.plan_paged(len(bt))
-        self.handoff.observe_paged(plan.bytes, time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.handoff.observe_paged(plan.bytes, dt)
         self.stats.handoffs += 1
         self.stats.handoff_bytes += plan.bytes         # metadata only
+        if self._metrics_on:
+            self._h_handoff_s.observe(dt)
+            self._h_handoff_b.observe(plan.bytes)
+            self.metrics_registry.trace(rid).event(
+                SPAN_HANDOFF, bytes=plan.bytes, seconds=dt)
         return DecodeSeq(rid, sid, model_id, bt, shared, private, n,
                          first_token, params.max_tokens, params,
                          tokens=list(tokens) if tokens is not None else [],
@@ -483,6 +685,8 @@ class LocalDisaggEngine:
         here, synchronously and in call order, so ``priority`` has no
         effect. ``max_tokens == 0`` is prefill-only: the prompt becomes
         resident (and published for prefix reuse), no decode."""
+        # the lifecycle trace opens here (queued span); later stages append
+        self.metrics_registry.start_trace(rid, model_id)
         if self.chunked:
             self.scheduler.add(Request(
                 rid=rid, sid=sid, model_id=model_id, tokens=tokens,
@@ -491,6 +695,7 @@ class LocalDisaggEngine:
             self._next_seq += 1
             return
         worker = self._pick_worker(sid, tokens)
+        self.metrics_registry.trace(rid).event(SPAN_ROUTED, worker=worker.wid)
         bt, n = worker.prefill(sid, tokens)
         if params.max_tokens == 0:
             self._on_request_done(rid, FINISH_LENGTH)
@@ -516,18 +721,18 @@ class LocalDisaggEngine:
         engine, or drive it with ``run()``/``step()``. ``priority`` (or
         ``params.priority``) orders admission under
         ``sched_policy="priority"`` in chunked mode; eager mode serves in
-        call order."""
+        call order. ``params.seed=None`` samples with the request id as its
+        seed (distinct draws per request); pass a seed to reproduce a
+        stream."""
         self.models.check_serving(model_id)
         params = SamplingParams() if params is None else params
         if not priority:
             priority = params.priority
-        if params.temperature > 0:
-            raise NotImplementedError("sampling (temperature > 0): port "
-                                      "slice 3")
         ephemeral = session is None
         sid = self._new_context_sid() if ephemeral else session
         rid = self._next_rid
         self._next_rid += 1
+        params = self._resolve_seed(params, rid)   # the handle sees the seed
         out = RequestOutput(self, rid, sid, model_id, params)
         if stream_callback is not None:
             out.add_callback(stream_callback)
@@ -596,6 +801,14 @@ class LocalDisaggEngine:
             return True
         return False
 
+    @staticmethod
+    def _resolve_seed(params: SamplingParams, rid: int) -> SamplingParams:
+        """``seed=None`` -> the request id, so N sampled fan-outs over one
+        prompt draw differently; an explicit seed passes through."""
+        if params.seed is not None:
+            return params
+        return dataclasses.replace(params, seed=rid)
+
     def _new_context_sid(self) -> int:
         sid = self._next_ctx_sid
         self._next_ctx_sid += 1
@@ -616,6 +829,9 @@ class LocalDisaggEngine:
             self.scheduler.step()
 
     def _on_request_done(self, rid: int, reason: str) -> None:
+        # terminal trace span: "aborted" for an abort at any stage,
+        # "finished" with the reason otherwise
+        self.metrics_registry.trace(rid).close(reason)
         self._done.add(rid)
         out = self._requests.pop(rid, None)
         if out is not None:
@@ -642,9 +858,11 @@ class LocalDisaggEngine:
 
     def decode_step(self, seqs: list[DecodeSeq]) -> None:
         """Advance every active sequence, across ALL decode models, one
-        greedy token: ONE fused forward per step (``fused=False``: one per
-        model). Streams each token to its request handle and retires
-        sequences that emit their eos/stop token on the next reap."""
+        token, sampled per its request's SamplingParams: ONE fused forward
+        per step per group (``fused=False``: one per model). Streams each
+        token to its request handle, observes TTFT/ITL at the push
+        timestamps, and retires sequences that emit their eos/stop token on
+        the next reap."""
         if not seqs:
             return
         self._grow_tail_pages(seqs)
@@ -661,6 +879,7 @@ class LocalDisaggEngine:
                 toks = self._batched_step(mid, [seqs[i] for i in idx])
                 for i, t in zip(idx, toks):
                     nxt[i] = t
+        metrics_on = self._metrics_on      # one branch per token when off
         for s, t in zip(seqs, nxt):
             s.out.append(t)
             s.next_token = t
@@ -669,31 +888,33 @@ class LocalDisaggEngine:
             out = self._requests.get(s.rid)
             if out is not None:
                 out._push(t)
+                if metrics_on:
+                    # the timestamps RequestOutput just recorded: exported
+                    # latencies are what a streaming client observes
+                    times = out.token_times
+                    if len(times) == 1:
+                        self._h_ttft.observe(times[0] - out.submit_time)
+                        self.metrics_registry.trace(s.rid).event(
+                            SPAN_FIRST_TOKEN, t=times[0])
+                    else:
+                        self._h_itl.observe(times[-1] - times[-2])
+                        self.metrics_registry.trace(s.rid).event(
+                            SPAN_TOKEN, t=times[-1])
             reason = s.params.is_stop(t)
             if reason is not None:
                 s.finish_reason = reason
                 s.remaining = 0                    # retired next reap
         self.stats.decode_steps += 1
         self.stats.decode_tokens += len(seqs)
+        if metrics_on:
+            self._h_batch.observe(len(seqs))
 
     def _batched_step(self, mid: str, seqs: list[DecodeSeq]) -> list:
         """One per-model forward (the ``fused=False`` dispatch unit);
-        returns greedy next tokens aligned with ``seqs``."""
-        # pow2-bucket the table width: padded columns lie past every
-        # sequence's length, so this is token-identical
-        npages = next_pow2(max(len(s.block_table) for s in seqs))
-        bt = np.zeros((len(seqs), npages), np.int32)
-        for i, s in enumerate(seqs):
-            bt[i, :len(s.block_table)] = s.block_table
-        dev = self.device
-        toks = torch.tensor([s.next_token for s in seqs], dtype=torch.int32,
-                            device=dev)
-        pos = torch.tensor([s.pos for s in seqs], dtype=torch.int32,
-                           device=dev)
-        pool_cache = self.kvpool.make_decode_cache(torch.from_numpy(bt).to(dev))
-        nxt = self.decoders[mid].step(toks, pos, pool_cache)
+        returns the next tokens aligned with ``seqs``."""
+        nxt = self.decoders[mid].step(seqs, self.kvpool)
         self.stats.decode_dispatches += 1
-        return nxt.cpu().tolist()
+        return nxt
 
     def _relay_publish(self, s: DecodeSeq) -> set:
         """Publish a FINISHED sequence's resident KV into the radix tree,

@@ -1,9 +1,9 @@
 """Model-lifecycle registry: hot (un)register decode models while serving.
 
-Port of ``repro.serving.registry`` for full-weight decode models (the
-paper's full fine-tunes). LoRA specs arrive with the serving-features
-slice.
+Port of ``repro.serving.registry``.
 
+    engine.models.register("summarizer", DecodeModelSpec(
+        lora=LoRAAdapter(params=lora_init(base, rank=8, generator=g))))
     engine.models.register("planner", DecodeModelSpec(full=planner_params))
     engine.models.unregister("planner", drain=True)   # or drain=False
 
@@ -12,39 +12,88 @@ plane is rebuilt at the next STEP BOUNDARY (``sync``, called by the
 scheduler at the top of every step), never mid-step. ``unregister
 (drain=True)`` refuses new work at once and lets in-flight requests finish;
 ``drain=False`` aborts them through the engine's abort path.
+
+Weight layout per spec kind (serving/decode.py):
+  - ``full=params``: the model's full tree joins the stacked model axis.
+  - ``lora=LoRAAdapter(...)``: only the stacked A/B factors are stored; the
+    frozen base weights are the ENGINE's single copy, and each lane's
+    ``W + scale * A[m] @ B[m]`` is merged inside the fused step, one layer
+    at a time (Eq. 9 on the weight side).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
-from repro_torch.core.lora import check_stackable
+from repro_torch.core.lora import (check_layer_adapters, check_stackable,
+                                   lora_apply)
 from repro_torch.serving.api import UnknownModelError
 
 
-class DecodeModelSpec:
-    """How a registered decode model stores its weights: ``full=params``, a
-    complete param tree that the fused plane stacks on its model axis."""
+@dataclass(frozen=True)
+class LoRAAdapter:
+    """An adapter-factored decode module: ``W_eff = W + (alpha/rank)·A@B``
+    over the engine's frozen base weights. ``params`` is a ``lora_init``-
+    style tree (``LoRAPair`` at targeted weights, None elsewhere)."""
+    params: Any
+    alpha: float = 16.0
+    rank: int = 8
 
-    def __init__(self, full: Any = None, lora: Any = None):
-        if lora is not None:
-            raise NotImplementedError(
-                "LoRA decode models: port slice 4 (serving features)")
-        if full is None:
-            raise ValueError("DecodeModelSpec takes full=params")
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+class DecodeModelSpec:
+    """How a registered decode model stores its weights: exactly one of
+
+    - ``full=params``: a complete param tree, stacked on the model axis;
+    - ``lora=LoRAAdapter(...)``: base + low-rank factors; the fused plane
+      stores only the stacked factors and merges inside the step.
+    """
+
+    def __init__(self, full: Any = None, lora: LoRAAdapter | None = None):
+        if (full is None) == (lora is None):
+            raise ValueError(
+                "DecodeModelSpec takes exactly one of full=params or "
+                "lora=LoRAAdapter(...)")
+        if lora is not None and not isinstance(lora, LoRAAdapter):
+            raise TypeError(f"lora= expects a LoRAAdapter, got {type(lora)}")
         self.full = full
+        self.lora = lora
+
+    @property
+    def kind(self) -> str:
+        return "full" if self.full is not None else "lora"
 
     def group_key(self):
-        """Fusability bucket within one ModelConfig."""
-        return ("full",)
+        """Fusability bucket within one ModelConfig: full models stack with
+        full models; adapters only with adapters of the same (alpha, rank),
+        whose stacked A/B shapes and merge scale agree."""
+        if self.full is not None:
+            return ("full",)
+        return ("lora", self.lora.alpha, self.lora.rank)
+
+    def materialize(self, base_params):
+        """Full effective params (the per-model ``fused=False`` layout)."""
+        if self.full is not None:
+            return self.full
+        return lora_apply(base_params, self.lora.params,
+                          alpha=self.lora.alpha, rank=self.lora.rank)
 
     def __repr__(self):
-        return "DecodeModelSpec(full=<params>)"
+        if self.full is not None:
+            return "DecodeModelSpec(full=<params>)"
+        return (f"DecodeModelSpec(lora=LoRAAdapter(rank={self.lora.rank}, "
+                f"alpha={self.lora.alpha}))")
 
 
 def as_spec(obj) -> DecodeModelSpec:
     """Coerce to a spec: raw param trees register as full models."""
     if isinstance(obj, DecodeModelSpec):
         return obj
+    if isinstance(obj, LoRAAdapter):
+        return DecodeModelSpec(lora=obj)
     return DecodeModelSpec(full=obj)
 
 
@@ -136,10 +185,18 @@ class ModelRegistry:
     def _check_layout(self, specs) -> None:
         """Refuse, before any state changes, a model set that the live fused
         plane could stack only by copying rows of a stacked tree
-        (``core.lora.check_stackable``). The engine's constructor registers
-        its decoders first and then stacks the whole set once."""
-        if self.engine.fused and self.engine.decode_plane is not None:
-            check_stackable([s.full for s in specs])
+        (``core.lora.check_stackable``; full specs only: adapters are
+        stacked as copies of their small factors), or adapters it cannot
+        merge in its step (``check_layer_adapters``). The engine's
+        constructor registers its decoders first and then stacks the whole
+        set once."""
+        if not self.engine.fused:
+            return
+        for s in specs:
+            if s.lora is not None:
+                check_layer_adapters(s.lora.params)
+        if self.engine.decode_plane is not None:
+            check_stackable([s.full for s in specs if s.full is not None])
 
     # -- step-boundary application --------------------------------------
     def sync(self) -> None:

@@ -27,11 +27,10 @@ The same object runs eager mode (chunking off): ``generate`` prefills whole
 prompts synchronously, nothing waits in the queues, and a step is
 decode-only.
 
-Not ported yet, with the slices that bring them: preemption and its
-oversubscription phases (``_oversub_phase``, ``_tail_growth_guard``,
-``Request.resume_seq``, slice 4), the step-boundary metrics observation,
-autoscaling and its extra decode reserve (slice 4), and the pool sanitizer
-(slice 7).
+Not ported yet: preemption and its oversubscription phases
+(``_oversub_phase``, ``_tail_growth_guard``, ``Request.resume_seq``),
+autoscaling and its extra decode reserve (``_autoscale_tick``), and the pool
+sanitizer.
 """
 from __future__ import annotations
 
@@ -43,6 +42,7 @@ from repro_torch.device import synchronize
 from repro_torch.kvcache.blocks import PoolExhausted
 from repro_torch.serving.api import FINISH_LENGTH
 from repro_torch.serving.decode import next_pow2
+from repro_torch.serving.metrics import SPAN_CHUNK, SPAN_ROUTED
 from repro_torch.serving.scheduler.queue import POLICIES, order_requests
 
 
@@ -137,7 +137,7 @@ class ChunkedScheduler:
     def step(self) -> None:
         """One engine step: reap finished sequences (their budget slots and
         pages free BEFORE this step's packing); apply deferred model churn;
-        admit; pack prefill chunks under the budget; promote finished
+        observe the step's metrics; admit; pack prefill chunks under the budget; promote finished
         prefills (zero-copy handoff); advance every active sequence one
         decode token."""
         self.stats.steps += 1
@@ -146,6 +146,8 @@ class ChunkedScheduler:
         # retired a draining model's last sequence) and relayout the fused
         # plane; lane indices are re-derived from the new plane this step
         self.engine.models.sync()
+        # same boundary: queue depth and pool occupancy into the metrics
+        self.engine._observe_step()
         progress += self._admit()
         budget = self.cfg.token_budget - len(self.active)
         progress += self._run_chunks(self._plan_chunks(budget))
@@ -171,6 +173,8 @@ class ChunkedScheduler:
             self.waiting.remove(r)
             w = self.engine._pick_worker(r.sid, r.tokens)
             r.worker = w
+            self.engine.metrics_registry.trace(r.rid).event(
+                SPAN_ROUTED, worker=w.wid)
             sc = w.sessions.get(r.sid)
             if sc is not None and sc.tokens == r.tokens:
                 # identical-context sibling: the session's pages already
@@ -261,6 +265,8 @@ class ChunkedScheduler:
                 r.done += S
                 r.worker.pending_chunk_tokens -= S
                 r.worker.ewma.observe(S, dt / B)
+                eng.metrics_registry.trace(r.rid).event(
+                    SPAN_CHUNK, tokens=S, done=r.done)
             eng.stats.prefill_tokens_computed += B * S
             self.stats.chunks += B
             self.stats.chunk_tokens += B * S
@@ -280,7 +286,7 @@ class ChunkedScheduler:
     def _reserve_target(self) -> int:
         """Admission floor: the decode reserve. The reference scales it
         down under preemption's overcommit and adds the autoscaler's extra
-        headroom; both arrive with port slice 4."""
+        headroom; neither preemption nor autoscaling is ported yet."""
         return self._decode_reserve()
 
     # ---- prefill -> decode handoff -------------------------------------

@@ -391,3 +391,97 @@ def test_stacking_that_would_copy_stacked_rows_is_refused():
     # the constructor stacks its whole set once, in any registration order
     eng = _port(tcfg, base, {"c": row2, "a": row0, "b": row1})
     assert eng.decode_plane.model_ids == ["a", "b", "c"]
+
+
+# ======================================================================
+# sampling and LoRA groups against the reference engine
+
+
+# one decode composition and one table-width bucket from the first decode
+# step to the last, so the reference compiles its steps once
+SAMPLED_JOBS = [
+    (11, 19, "m0", dict(max_tokens=6, temperature=0.8, top_k=12, seed=7)),
+    (12, 17, "m1", dict(max_tokens=6, temperature=1.3, seed=3)),
+    (13, 22, "m0", dict(max_tokens=6)),
+    (14, 20, "m1", dict(max_tokens=6, temperature=0.7, top_k=20, top_p=0.9,
+                        seed=2**31 - 1))]
+ENGINE_MODES = {"fused": {}, "per-model": {"fused": False},
+                "chunked": {"chunked": True, "chunk_size": 5,
+                            "token_budget": 16}}
+
+
+def _serve(eng, jobs, params_cls):
+    outs = [eng.generate(mid, _tok(s, n), params_cls(**kw))
+            for s, n, mid, kw in jobs]
+    eng.run()
+    return [[int(t) for t in o.tokens] for o in outs]
+
+
+@pytest.fixture(scope="module", params=sorted(ENGINE_MODES))
+def sampled_case(request):
+    (jcfg, jbase, jdecs), port = _setup("grouped", 2)
+    ref = JaxEngine(jcfg, jbase, jdecs, num_pages=64, page_size=PAGE,
+                    **ENGINE_MODES[request.param])
+    return request.param, port, _serve(ref, SAMPLED_JOBS, JSamplingParams)
+
+
+def test_seeded_sampled_serve_matches_reference(sampled_case):
+    """Seeded sampled requests (top_k, top_p, both, neither) packed with a
+    greedy one across two models: the reference engine's tokens, fused,
+    per-model and chunked."""
+    mode, (tcfg, base, decs), want = sampled_case
+    eng = _port(tcfg, base, decs, **ENGINE_MODES[mode])
+    assert _serve(eng, SAMPLED_JOBS, SamplingParams) == want
+
+
+def _ref_lora(key, base, rank=4, alpha=8.0):
+    """tests/test_registry.py::_adapter: lora_init with nonzero B."""
+    from repro.core.lora import LoRAPair, lora_init
+    from repro.serving.registry import LoRAAdapter as JLoRAAdapter
+    tree = lora_init(key, base, rank=rank)
+    flat, td = jax.tree_util.tree_flatten(
+        tree, is_leaf=lambda x: x is None or isinstance(x, LoRAPair))
+    out = [None if p is None else
+           LoRAPair(p.A, 0.05 * jax.random.normal(
+               jax.random.fold_in(key, 77 + i), p.B.shape, p.B.dtype))
+           for i, p in enumerate(flat)]
+    return JLoRAAdapter(jax.tree_util.tree_unflatten(td, out), alpha=alpha,
+                        rank=rank)
+
+
+LORA_JOBS = [(s, n, f"a{i % 2}", kw) for i, (s, n, _, kw)
+             in enumerate(SAMPLED_JOBS[:3])]
+
+
+@pytest.fixture(scope="module")
+def lora_case():
+    from repro.serving.registry import DecodeModelSpec as JSpec
+    (jcfg, jbase, _), (tcfg, base, _) = _setup("grouped", 0)
+    ads = {f"a{i}": _ref_lora(jax.random.PRNGKey(100 + i), jbase)
+           for i in range(2)}
+    ref = JaxEngine(jcfg, jbase, num_pages=64, page_size=PAGE)
+    for mid, ad in ads.items():
+        ref.models.register(mid, JSpec(lora=ad))
+    want = _serve(ref, LORA_JOBS, JSamplingParams)
+    return (tcfg, base), ads, want
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "per-model"])
+def test_lora_group_serve_matches_reference(lora_case, fused):
+    """Two LoRA decode models (adapters carried across), greedy and seeded:
+    the reference engine's tokens, from the fused in-step merge and from
+    the lazily materialized per-model path."""
+    from repro_torch.params import adapters_from_numpy
+    from repro_torch.serving import DecodeModelSpec, LoRAAdapter
+    (tcfg, base), ads, want = lora_case
+    eng = _port(tcfg, base, fused=fused)
+    for mid, ad in ads.items():
+        eng.models.register(mid, DecodeModelSpec(lora=LoRAAdapter(
+            adapters_from_numpy(jax.tree.map(np.asarray, ad.params),
+                                device="cpu"), alpha=ad.alpha,
+            rank=ad.rank)))
+    assert _serve(eng, LORA_JOBS, SamplingParams) == want
+    if fused:
+        assert eng.stats.decode_dispatches == eng.stats.decode_steps
+    assert eng.stats.relay_publishes == 0
+    assert eng.stats.relay_skipped == len(LORA_JOBS)

@@ -472,3 +472,99 @@ def test_ragged_fused_batch_leaves_sentinel_row_zero_on_card(card):
         assert not a[:, 0].any()
     for a in (*kv.k_tail, *kv.v_tail):
         assert not a[0].any()
+
+
+# ======================================================================
+# sampling and LoRA groups on the card
+
+
+@pytest.mark.parametrize("V", [32000, 128256])
+def test_sampler_on_card_matches_cpu(card, V):
+    """The sampler on card-made logits against the same sampler on the CPU:
+    keys, random bits and uniforms exact; tokens equal except rows whose two
+    largest perturbed scores (the CPU's) differ by less than
+    1e-5 * max(1, |score|), at most 1% of the rows."""
+    from repro_torch.serving import sampling as S
+    g = torch.Generator(device=card).manual_seed(5)
+    N = 64
+    logits = torch.randn((N, V), generator=g, device=card) * 3
+    cpu = torch.Generator().manual_seed(6)
+    seeds = torch.randint(-2**31, 2**31 - 1, (N,), generator=cpu,
+                          dtype=torch.int64).to(torch.int32)
+    pos = torch.randint(0, 4096, (N,), generator=cpu).to(torch.int32)
+    temp = torch.tensor([0.0, 0.7, 1.5, 1.0] * (N // 4))
+    top_k = torch.tensor([0, 1, 5, 50] * (N // 4)).roll(1)
+    top_p = torch.tensor([1.0, 0.9, 0.5, 0.95] * (N // 4)).roll(2)
+    args = (temp, top_k, top_p)
+    keys_c = S.fold_keys(seeds, pos)
+    keys_g = S.fold_keys(seeds.to(card), pos.to(card))
+    assert torch.equal(keys_g.cpu(), keys_c)
+    assert torch.equal(S.random_bits(keys_g, V).cpu(),
+                       S.random_bits(keys_c, V))
+    assert torch.equal(S.uniform(keys_g, V).cpu(), S.uniform(keys_c, V))
+    got = S.sample_step(logits, pos.to(card), *(a.to(card) for a in args),
+                        seeds.to(card)).cpu()
+    lc = logits.cpu()
+    want = S.sample_step(lc, pos, *args, seeds)
+    bad = (got != want).nonzero()[:, 0]
+    assert not (temp[bad] <= 0).any()          # greedy rows are exact
+    if len(bad):
+        score = (S.gumbel(keys_c[bad], V)
+                 + S.filter_logits(lc[bad], *(a[bad] for a in args)))
+        top2 = score.topk(2, -1).values
+        gap = top2[:, 0] - top2[:, 1]
+        assert (gap < 1e-5 * top2[:, 0].abs().clamp(min=1.0)).all(), gap
+    assert len(bad) <= 0.01 * N
+
+
+def _toy_lora(base, n, seed):
+    from repro_torch.core.lora import LoRAPair, lora_init
+    from repro_torch.serving import LoRAAdapter
+    g = torch.Generator().manual_seed(seed)
+    ads = {}
+    for i in range(n):
+        tree = lora_init(base, rank=4, generator=g)
+        ads[f"l{i}"] = LoRAAdapter(_nonzero_b(tree, g, LoRAPair), alpha=8.0,
+                                   rank=4)
+    return ads
+
+
+def _nonzero_b(node, g, pair):
+    if isinstance(node, pair):
+        return pair(node.A, 0.05 * torch.randn(node.B.shape, generator=g))
+    if isinstance(node, dict):
+        return {k: _nonzero_b(v, g, pair) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_nonzero_b(v, g, pair) for v in node]
+    return node
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(TOY_CFGS))
+def test_lora_group_on_card_identical_to_materialized(card, name, dtype):
+    """Three LoRA decode models in one fused group on the card give the
+    tokens of their ``lora_apply`` decoders on an all-full plane and of the
+    per-model path, greedy and seeded."""
+    from repro_torch.core.lora import lora_apply
+    from repro_torch.serving import DecodeModelSpec
+    cfg = ModelConfig(**{**TOY_CFGS[name], "dtype": dtype})
+    tdt = getattr(torch, dtype)
+    base = init_params(cfg, 0, device="cpu")
+    ads = _toy_lora(base, 3, 9)
+    on = lambda t: tree_map(lambda x: x.to(card, tdt), t)   # noqa: E731
+    base = on(base)
+    outs = {}
+    for mode in ("lora", "full", "per-model"):
+        eng = LocalDisaggEngine(cfg, base, device=card, num_pages=64,
+                                page_size=8, fused=mode != "per-model")
+        for mid, ad in ads.items():
+            ad = type(ad)(on(ad.params), alpha=ad.alpha, rank=ad.rank)
+            eng.models.register(mid, DecodeModelSpec(full=lora_apply(
+                base, ad.params, alpha=8.0, rank=4)) if mode == "full"
+                else DecodeModelSpec(lora=ad))
+        with eng.shared_context(list(range(4, 27))) as ctx:
+            reqs = [ctx.generate(m, [5, 6, 7 + i], SamplingParams(
+                max_tokens=6, temperature=0.8 * (i % 2), seed=i))
+                for i, m in enumerate(("l0", "l1", "l2", "l0"))]
+            outs[mode] = [r.result().tolist() for r in reqs]
+    assert outs["lora"] == outs["full"] == outs["per-model"]

@@ -54,4 +54,7 @@ print(" ".join(names))
     assert len(visited) >= 20                   # every module was visited
     assert {"repro_torch.kernels.flash_prefill_paged",
             "repro_torch.serving.scheduler.queue",
-            "repro_torch.serving.scheduler.scheduler"} <= visited
+            "repro_torch.serving.scheduler.scheduler",
+            "repro_torch.serving.sampling",
+            "repro_torch.serving.metrics",
+            "repro_torch.core.lora"} <= visited
