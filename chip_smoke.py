@@ -28,7 +28,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      head_dim 16 (the reference's toy config) and 32: identical greedy
      tokens, eager and chunked (chunk sizes 3 and 8, boundaries mid-page),
      and chunked equal to eager; sentinel pool row 0 still zero after a
-     ragged fused batch;
+     ragged fused batch; tests/test_preempt.py's contention fleet (18
+     pages of 8) with ``preempt=True, overcommit=2.0, sanitize=True`` in
+     forced swap and forced recompute mode: card tokens == CPU tokens ==
+     the unarmed run's, same preemption counters; an ``autoscale=`` engine
+     whose prefill pool grows gives a fixed pool's tokens;
   4. the main path at full width (``repro_torch.launch.main_path``):
      LocalDisaggEngine serving Llama-3.1-8B (32 layers, bf16, seeded random
      weights) with a base model and two full-weight decode models over a
@@ -50,10 +54,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      shared context's K/V against phase 4's, relative norm per layer, is
      held under a ceiling of (layer + 1) * 2**-8; how many greedy tokens
      agree with phase 4 is printed, not asserted; metrics as in phase 4.
-     Then phase 9;
+     Then phase 11, then phase 9;
   6. the same two paths at full width in fp32, depth cut to 4 layers, same
      traffic: greedy tokens identical and context K/V within
-     ``FP32_KV_REL`` per layer. Then phase 10;
+     ``FP32_KV_REL`` per layer; then phase 11's preemption fleet at this
+     depth in fp32, greedy and seeded: forced swap and forced recompute
+     give the tokens of the unarmed run (asserted). Then phase 10;
   7. device times: at the chunk shapes the kernels finish faster than the
      Python wrapper launches them, so back-to-back CUDA-event times measure
      the host. torch.profiler's records give the device time of the three
@@ -84,7 +90,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      4 layers, fp32 and bf16: tokens of the fused LoRA group == the
      all-full plane of the materialized trees, and in fp32 also == the
      per-model path (lazily materialized ``lora_apply``); in bf16 the
-     per-model path's agreement is printed, not asserted.
+     per-model path's agreement is printed, not asserted;
+  11. (after phase 5) priority preemption at full width and depth: a
+     chunked engine over phase 4's two stacked decoders (row 1 is the base
+     and the relay-compatible model "mb", row 0 the swap-only "m0";
+     ``main_path.preempt_engine``), six low-priority 200-token prompts
+     decoding 128 tokens, then two priority-5 1000-token prompts decoding
+     32; unarmed over 512 pages, then ``preempt=True, overcommit=2.0,
+     sanitize=True`` over ``PREEMPT_PAGES`` (which the low-priority decodes
+     fill) in forced swap, forced recompute and auto mode. Each armed run
+     preempts, its sanitizer passes at every step, its free pages return to
+     baseline, its peak memory stays within the weights + pool + 2 GiB,
+     and every swap restore reads back bit for bit what ``put`` read (into
+     other rows). Prints the host link each way, the seconds per swap, the
+     cost model's re-prefill prediction beside the measured chunk time,
+     auto mode's choices, high-priority TTFT/ITL p50/p95 armed and
+     unarmed, and the greedy tokens that agree with the unarmed run (not
+     asserted in bf16).
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -861,6 +883,93 @@ def phase_toy_engine():
         log(f"[toy engine] head_dim 16 ragged fused batch (m0, m0, m1): "
             f"sentinel row 0 of every layer is zero; tokens == isolated "
             f"runs: {alone}")
+        toy_preempt(cfg, cpu)
+        toy_autoscale(cfg, cpu)
+
+
+#: tests/test_preempt.py's contention fleet: 18 pages of 8, two
+#: low-priority 9-token prompts decoding 40 tokens, then (after 4 steps)
+#: two priority-5 17-token prompts decoding 6
+TOY_ARMED = dict(preempt=True, overcommit=2.0, sanitize=True)
+TOY_COUNTERS = ("preemptions", "swap_out_pages", "swap_in_pages",
+                "recompute_tokens", "swap_bytes")
+
+
+def toy_fleet(cfg, params, dev, mode=None, **engine_kw):
+    """The contention fleet on a toy engine whose one decode model is the
+    base itself; returns (tokens, preemption counters)."""
+    from repro_torch.params import tree_map
+    from repro_torch.serving import LocalDisaggEngine, SamplingParams
+
+    base = tree_map(lambda t: t.to(dev), params["base"])
+    eng = LocalDisaggEngine(cfg, base, device=dev, num_pages=18,
+                            page_size=8, chunked=True, **engine_kw)
+    eng.models.register("m", base)
+    if mode is not None:
+        eng.swap.cfg.mode = mode
+    lo = [eng.generate("m", [2 + i] * 9, SamplingParams(max_tokens=40),
+                       priority=0) for i in range(2)]
+    for _ in range(4):
+        eng.step()
+    hi = [eng.generate("m", [30 + i] * 17, SamplingParams(max_tokens=6),
+                       priority=5) for i in range(2)]
+    eng.run()
+    assert eng.block_pool.free_count == 18, eng.block_pool.free_count
+    s = eng.stats()
+    return ([h.result().tolist() for h in lo + hi],
+            {k: s[k] for k in TOY_COUNTERS})
+
+
+def toy_preempt(cfg, cpu):
+    """The contention fleet armed (``TOY_ARMED``), forced swap and forced
+    recompute: card tokens == CPU tokens == the unarmed run's, and the
+    same preemption counters on both."""
+    plain = {dev: toy_fleet(cfg, cpu, dev)[0] for dev in ("cpu", "cuda")}
+    assert plain["cuda"] == plain["cpu"], plain
+    for mode in ("swap", "recompute"):
+        got = {dev: toy_fleet(cfg, cpu, dev, mode, **TOY_ARMED)
+               for dev in ("cpu", "cuda")}
+        assert got["cuda"][0] == got["cpu"][0] == plain["cuda"], \
+            (mode, got, plain)
+        assert got["cuda"][1] == got["cpu"][1], (mode, got)
+        assert got["cuda"][1]["preemptions"] >= 1, (mode, got)
+        log(f"[toy engine] contention fleet, preempt=True overcommit=2.0 "
+            f"sanitize=True, forced {mode}: card tokens == CPU tokens == "
+            f"unarmed tokens; counters {got['cuda'][1]} on both")
+
+
+def toy_autoscale(cfg, cpu):
+    """A long-prompt burst on engines that grow their prefill pool
+    (``autoscale=``): the tokens of a fixed pool, card and CPU."""
+    import numpy as np
+
+    from repro_torch.params import tree_map
+    from repro_torch.serving import (AutoscaleConfig, LocalDisaggEngine,
+                                     SamplingParams)
+
+    grow = AutoscaleConfig(interval_s=0.0, cooldown_intervals=0,
+                           backlog_high_s=1e-4, shrink_patience=10_000)
+    rng = np.random.default_rng(3)
+    ctxs = [[int(t) for t in rng.integers(4, 60, size=48 + i)]
+            for i in range(6)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = {m: tree_map(lambda t: t.to(dev), t) for m, t in cpu.items()}
+        for scale in (grow, None):
+            eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"]},
+                                    device=dev, num_pages=256, page_size=8,
+                                    chunked=True, chunk_size=8,
+                                    token_budget=32, autoscale=scale)
+            outs = [eng.generate("m0", c, SamplingParams(max_tokens=4))
+                    for c in ctxs]
+            eng.run()
+            got[dev, scale is not None] = [list(o.tokens) for o in outs]
+            if scale is not None:
+                assert len(eng.prefill_workers) > 1, eng.prefill_workers
+                workers = len(eng.prefill_workers)
+    assert len(set(map(str, got.values()))) == 1, got
+    log(f"[toy engine] autoscale: the prefill pool grew to {workers} "
+        f"workers; tokens == a fixed pool's, card and CPU")
 
 
 # ======================================================================
@@ -1155,6 +1264,8 @@ def phase_chunked(card, eager: dict):
         f"{total} (not asserted)")
     report_metrics(eng, card, "chunked")
     eager["base"] = eng.base_params            # phase 9's base, held once
+    # phase 11's weights: the stacked decoders (phase 9 frees them)
+    eager["decoders"] = {m: dw.spec.full for m, dw in eng.decoders.items()}
     return launches
 
 
@@ -1209,6 +1320,25 @@ def phase_fp32_parity(card, n_layers: int):
     assert c_tokens == e_tokens, (c_tokens, e_tokens)
     log(f"[fp32] chunked greedy tokens == eager greedy tokens: all "
         f"{sum(map(len, c_tokens))}")
+    decs = {m: dw.spec.full for m, dw in eng.decoders.items()}
+    del eng, c_reqs
+    fp32_preempt(card, cfg, decs)
+
+
+def fp32_preempt(card, cfg, decs):
+    """Phase 11's fleet in fp32 at phase 6's depth, greedy and seeded:
+    forced swap and forced recompute give the tokens of the unarmed run."""
+    for seeded in (False, True):
+        want = preempt_run(cfg, decs, decs["m0"]["embed"].device, "off",
+                           seeded)["tokens"]
+        for mode in ("swap", "recompute"):
+            r = preempt_run(cfg, decs, decs["m0"]["embed"].device, mode,
+                            seeded)
+            assert r["tokens"] == want, (mode, seeded)
+            log(f"[fp32] preemption fleet, {'seeded' if seeded else 'greedy'}"
+                f", forced {mode}: {r['stats']['preemptions']} preemptions "
+                f"(modes {r['modes']}), tokens == the unarmed run's: all "
+                f"{sum(map(len, want))}")
 
 
 # ======================================================================
@@ -1683,6 +1813,311 @@ def phase_lora_identity(card, n_layers: int):
 
 
 # ======================================================================
+# phase 11: priority preemption at full width (run after phase 5)
+
+
+#: the preemption fleet (phase 11; phase 6 serves it in fp32 at 4 layers):
+#: PREEMPT_LO low-priority prompts of PREEMPT_LO_PROMPT tokens decoding
+#: PREEMPT_LO_TOKENS, to "mb" and "m0" in turn; once all of them decode and
+#: PREEMPT_LEAD more steps have run, PREEMPT_HI priority-5 prompts of
+#: PREEMPT_HI_PROMPT tokens decoding PREEMPT_HI_TOKENS
+PREEMPT_LO, PREEMPT_LO_PROMPT, PREEMPT_LO_TOKENS = 6, 200, 128
+PREEMPT_HI, PREEMPT_HI_PROMPT, PREEMPT_HI_TOKENS = 2, 1000, 32
+PREEMPT_LEAD = 32
+#: pages of 16 tokens (2 MiB each at Llama-3.1-8B width in bf16): the
+#: armed runs' pool, which the low-priority decodes fill so that the
+#: high-priority prompts enter only by preempting them, and the unarmed
+#: run's, which holds the whole fleet at once
+PREEMPT_PAGES = 216
+ROOMY_PAGES = 512
+ARMED = dict(preempt=True, overcommit=2.0, sanitize=True)
+
+
+def preempt_fleet(eng, cfg, seeded=False):
+    """Serve the preemption fleet on ``eng``; returns the (low, high)
+    priority request handles, all finished, the pool back at its free
+    count."""
+    import numpy as np
+
+    from repro_torch.launch.main_path import tokens
+    from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(11)
+    lo_prompts = [tokens(cfg, rng, PREEMPT_LO_PROMPT)
+                  for _ in range(PREEMPT_LO)]
+    hi_prompts = [tokens(cfg, rng, PREEMPT_HI_PROMPT)
+                  for _ in range(PREEMPT_HI)]
+
+    def sp(n, seed):
+        return SamplingParams(max_tokens=n, **(
+            dict(SAMPLED, seed=seed) if seeded else {}))
+    free0 = eng.block_pool.free_count
+    models = ("mb", "m0")
+    lo = [eng.generate(models[i % 2], p, sp(PREEMPT_LO_TOKENS, 100 + i),
+                       priority=0) for i, p in enumerate(lo_prompts)]
+    while len(eng.scheduler.active) < PREEMPT_LO:
+        eng.step()
+    for _ in range(PREEMPT_LEAD):
+        eng.step()
+    hi = [eng.generate(models[i % 2], p, sp(PREEMPT_HI_TOKENS, 200 + i),
+                       priority=5) for i, p in enumerate(hi_prompts)]
+    eng.run()
+    for h in lo + hi:
+        assert h.finished and h.finish_reason == "length", h
+    assert eng.block_pool.free_count == free0, (eng.block_pool.free_count,
+                                                free0)
+    eng.block_pool.check_invariants()
+    return lo, hi
+
+
+class SwapProbe:
+    """Watches an armed engine's swap tier: every transfer's direction,
+    bytes and seconds (what ``observe`` receives), that what ``put`` copied
+    to the host equals the pool rows it read, and that each restore's rows,
+    read back from the pool, equal what ``put`` read for them bit for bit
+    (``moved``: of those, the pages restored into another row)."""
+
+    def __init__(self, eng):
+        import torch
+
+        from repro_torch.kvcache.swap import _leaves
+
+        host = eng.swap.host
+        self.xfers = []                 # (direction, nbytes, seconds)
+        self.checked = self.moved = 0
+        way = ["out"]
+        observe, put, restore = host.observe, host.put, host.restore
+
+        def seen(nbytes, seconds):
+            self.xfers.append((way[0], nbytes, seconds))
+            observe(nbytes, seconds)
+
+        def rows(kvpool, bids):
+            idx = torch.tensor(list(bids), device=kvpool.device)
+            return [a.index_select(axis, idx).cpu()
+                    for _, _, a, axis in _leaves(kvpool.pool_state())]
+
+        def probed_put(kvpool, rid, bids):
+            way[0] = "out"
+            n = put(kvpool, rid, bids)
+            copied = [h for _, _, h, _ in _leaves(host._entries[rid]["host"])]
+            for a, b in zip(rows(kvpool, bids), copied, strict=True):
+                assert torch.equal(a, b), "put copied other bits"
+            return n
+
+        def probed_restore(kvpool, rid, positions, dst):
+            way[0] = "in"
+            entry = host._entries[rid]
+            sel = torch.tensor(list(positions))
+            want = [h.index_select(axis, sel)
+                    for _, _, h, axis in _leaves(entry["host"])]
+            n = restore(kvpool, rid, positions, dst)
+            for a, b in zip(rows(kvpool, dst), want, strict=True):
+                assert torch.equal(a, b), "restored rows differ from put's"
+            self.checked += len(dst)
+            self.moved += sum(d != entry["bids"][j]
+                              for j, d in zip(positions, dst))
+            return n
+
+        host.observe = seen
+        host.put, host.restore = probed_put, probed_restore
+
+    def rate(self, way):
+        """(bytes/s, transfers, mean seconds) of one direction."""
+        xs = [(b, t) for w, b, t in self.xfers if w == way]
+        if not xs:
+            return None, 0, None
+        nbytes, secs = sum(b for b, _ in xs), sum(t for _, t in xs)
+        return nbytes / secs, len(xs), secs / len(xs)
+
+
+def probe_rechunks(eng):
+    """Time every chunk forward that re-prefills a dropped victim; returns
+    the list it fills with ([(rid, start, take)], seconds, chunks in the
+    call)."""
+    import torch
+
+    sched = eng.scheduler
+    run = sched._run_chunks
+    recs = []
+
+    def timed(chunks):
+        mine = [(r.rid, start, take) for r, start, take in chunks
+                if r.resume_seq is not None]
+        if not mine:
+            return run(chunks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run(chunks)
+        torch.cuda.synchronize()
+        recs.append((mine, time.perf_counter() - t0, len(chunks)))
+        return n
+    sched._run_chunks = timed
+    return recs
+
+
+def percentiles(xs) -> str:
+    import numpy as np
+    if not xs:
+        return "none"
+    p50, p95 = np.percentile(np.asarray(xs, dtype=np.float64), [50, 95])
+    return f"p50 {p50:.6f} s p95 {p95:.6f} s (n={len(xs)})"
+
+
+def preempt_run(cfg, decs, device, name, seeded=False):
+    """One serve of the preemption fleet on a fresh engine over ``decs``
+    (``main_path.preempt_engine``, chunked): ``"off"`` unarmed over
+    ``ROOMY_PAGES``, else armed (``ARMED``) over ``PREEMPT_PAGES`` in
+    preemption mode ``name``. Launch counters are zeroed just before the
+    fleet and read just after; peak memory must stay within what was
+    allocated before (the weights) plus the pool plus 2 GiB."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import CHUNKED, preempt_engine
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    armed = name != "off"
+    eng = preempt_engine(cfg, decs, device,
+                         PREEMPT_PAGES if armed else ROOMY_PAGES,
+                         **CHUNKED, **(ARMED if armed else {}))
+    probe = rechunks = None
+    if armed:
+        eng.swap.cfg.mode = name
+        probe, rechunks = SwapProbe(eng), probe_rechunks(eng)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lo, hi = preempt_fleet(eng, cfg, seeded)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in fns.items()}
+    s = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    pool = (eng.kvpool.num_pages + 1) * eng.kvpool.page_bytes
+    assert peak <= mem0 + pool + PEAK_SLACK_BYTES, (peak, mem0, pool)
+    assert launches["paged_decode"] == cfg.n_layers * s["decode_dispatches"] \
+        > 0, (launches, s)
+    assert launches["flash_prefill_paged"] > 0, launches
+    assert launches["paged_write"] == 0, launches
+    if armed:
+        assert s["preemptions"] >= 1, s
+        assert eng.sanitizer.checks == eng.scheduler.stats.steps, \
+            (eng.sanitizer.checks, eng.scheduler.stats.steps)
+        assert s["pages_swapped"] == s["swapped_seqs"] == 0, s
+        assert len(eng.swap.host) == 0 and eng.swap.host.total_bytes == 0
+    out = dict(tokens=[list(h.tokens) for h in lo + hi], stats=s,
+               launches=launches, wall=wall, peak=peak, mem0=mem0,
+               pool=pool, steps=eng.scheduler.stats.steps,
+               hi_ttft=[h.ttft for h in hi],
+               hi_itl=[x for h in hi for x in h.inter_token_latencies()],
+               modes=list(eng.swap.modes) if armed else [],
+               probe=probe, rechunks=rechunks,
+               costmodel=eng.swap.costmodel if armed else None,
+               pages=eng.block_pool.num_blocks,
+               page_bytes=eng.kvpool.page_bytes)
+    del eng, lo, hi
+    return out
+
+
+def phase_preempt(card, eager):
+    """Priority preemption at full width and depth: Llama-3.1-8B, bf16,
+    chunked (``main_path.CHUNKED``), over the stacked decoders of phases
+    4-5 (``main_path.preempt_engine``: row 1 is the base and the
+    relay-compatible model "mb", row 0 the swap-only "m0"). The fleet runs
+    unarmed over a roomy pool, then armed over a pool the low-priority
+    decodes fill, in forced swap, forced recompute and auto mode. Every
+    armed run preempts, its sanitizer passes at every step, its pool comes
+    back to baseline, its memory stays within its bound, and every swap
+    restore reads back bit for bit what ``put`` read. Prints the host link
+    measured each way, the seconds per swap, the cost model's re-prefill
+    prediction beside the measured chunk time, auto mode's choices, the
+    high-priority TTFT/ITL, and how many tokens agree with the unarmed run
+    (not asserted: a batch of another row count rounds differently in
+    bf16, and recompute re-prefills decode-written KV through S>1)."""
+    cfg = eager["cfg"]
+    decs = eager.pop("decoders")
+    device = decs["m0"]["embed"].device
+    log(f"[preempt] {cfg.name}: {cfg.n_layers} layers {cfg.dtype}; fleet: "
+        f"{PREEMPT_LO} x {PREEMPT_LO_PROMPT}-token prompts decoding "
+        f"{PREEMPT_LO_TOKENS} (priority 0, models mb/m0), then "
+        f"{PREEMPT_HI} x {PREEMPT_HI_PROMPT}-token prompts decoding "
+        f"{PREEMPT_HI_TOKENS} (priority 5); armed pool {PREEMPT_PAGES} "
+        f"pages of 16 tokens, unarmed {ROOMY_PAGES}")
+    runs = {}
+    for name in ("off", "swap", "recompute", "auto"):
+        r = runs[name] = preempt_run(cfg, decs, device, name)
+        s = r["stats"]
+        log(f"[preempt] {name}: {r['steps']} steps in {r['wall']:.3f} s; "
+            f"preemptions {s['preemptions']} (modes {r['modes']}), "
+            f"swap_out_pages {s['swap_out_pages']}, swap_in_pages "
+            f"{s['swap_in_pages']}, swap_bytes {s['swap_bytes']}, "
+            f"recompute_tokens {s['recompute_tokens']}; launches "
+            f"{r['launches']}; peak {r['peak']} B within allocated before "
+            f"{r['mem0']} B + pool {r['pool']} B ({r['pages']} pages of "
+            f"{r['page_bytes']} B) + 2 GiB; sanitizer clean at every step; "
+            f"free pages back to {r['pages']} on {card}")
+        log(f"[preempt] {name}: high-priority TTFT "
+            f"{percentiles(r['hi_ttft'])}; ITL {percentiles(r['hi_itl'])} "
+            f"on {card}")
+    assert runs["swap"]["modes"] and set(runs["swap"]["modes"]) == {"swap"}
+    assert "recompute" in runs["recompute"]["modes"], runs["recompute"]
+    probe = runs["swap"]["probe"]
+    assert runs["swap"]["stats"]["swap_in_pages"] >= 1 and probe.checked, \
+        "no swapped page was restored: the round trip went unchecked"
+    log(f"[preempt] swap round trip: {probe.checked} restored pages read "
+        f"back bit-equal to what put read ({probe.moved} of them into "
+        f"another row)")
+    for name in ("swap", "auto"):
+        p = runs[name]["probe"]
+        for way, label in (("out", "device -> pinned host"),
+                           ("in", "pinned host -> device")):
+            bw, n, mean = p.rate(way)
+            if n:
+                each = [f"{t:.6f}" for w, _, t in p.xfers if w == way]
+                log(f"[preempt] {name}: {label}: {n} transfers, "
+                    f"{bw:.4e} B/s, {mean:.6f} s per swap (each, in order: "
+                    f"{each} s) on {card}")
+    for name in ("recompute", "auto"):
+        r = runs[name]
+        by_rid = {}
+        for mine, dt, n in r["rechunks"]:
+            for rid, start, take in mine:
+                rec = by_rid.setdefault(rid, dict(start=start, cold=0, s=0.0,
+                                                  calls=0, shared=0))
+                rec["cold"] += take
+                rec["s"] += dt
+                rec["calls"] += 1
+                rec["shared"] += n > 1
+        for rid, rec in sorted(by_rid.items()):
+            want = r["costmodel"].recompute_s(rec["cold"],
+                                              rec["start"] + rec["cold"])
+            log(f"[preempt] {name}: victim rid {rid} re-prefilled "
+                f"{rec['cold']} tokens past {rec['start']} cached: "
+                f"CostModel predicts {want:.6f} s, measured {rec['s']:.6f} "
+                f"s over {rec['calls']} chunk forward(s) ({rec['shared']} "
+                f"shared with other requests' chunks) on {card}")
+        if name == "recompute":
+            assert by_rid, "no victim was re-prefilled"
+    log(f"[preempt] auto mode chose {runs['auto']['modes']} (host link "
+        f"estimate {runs['auto']['costmodel'].host_bw:.4e} B/s after "
+        f"{runs['auto']['costmodel'].samples} transfers)")
+    ref = runs["off"]["tokens"]
+    total = sum(map(len, ref))
+    for name in ("swap", "recompute", "auto"):
+        same = sum(a == b for x, y in zip(runs[name]["tokens"], ref)
+                   for a, b in zip(x, y))
+        log(f"[preempt] {name}: greedy tokens equal to the unarmed run's: "
+            f"{same} of {total} (not asserted in bf16)")
+
+
+# ======================================================================
 
 
 def main() -> int:
@@ -1713,6 +2148,7 @@ def main() -> int:
     api_launches = phase_kernel_api(card, eager)
     phase_sampled(card, eager)
     chunked_launches = phase_chunked(card, eager)
+    phase_preempt(card, eager)
     lora = phase_lora(card, eager)
     del eager
     phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))

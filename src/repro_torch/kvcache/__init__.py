@@ -6,3 +6,5 @@ from repro_torch.kvcache.manager import (Allocation, CacheManager, CacheStats,
                                          state_bytes_per_seq)
 from repro_torch.kvcache.paged import PagedKVPool
 from repro_torch.kvcache.radix import NullPrefixIndex, PrefixIndex
+from repro_torch.kvcache.sanitize import (PoolSanitizer, SanitizerError,
+                                          check_index, check_pool)

@@ -19,9 +19,11 @@ Data flow:
 
 Every update here is IN PLACE. On the TPU the reference pairs buffer
 donation with ``decode_state``/``absorb_decode_state`` (and a donated
-``copy_page``) so XLA can update pages without copying the pool; torch
-mutates tensors directly, so those pairs have no counterpart: the decode
-step and ``copy_page`` write the pool's own tensors.
+``copy_page`` and swap scatter) so XLA can update pages without copying the
+pool; torch mutates tensors directly, so those pairs have no counterpart:
+the decode step, ``copy_page`` and the swap tier's restore
+(``kvcache/swap.py``) write the pool's own tensors. ``pool_state`` hands
+out the tensors themselves (views, no copy).
 
 Physical row 0 is the padding sentinel (``BlockPool.SENTINEL``): it is never
 allocated, so zero-padded block tables can never alias live KV.
@@ -77,6 +79,27 @@ class PagedKVPool:
         return (all(k == ATTN for k in cfg.layer_kinds())
                 and not cfg.is_encdec and cfg.n_heads > 0
                 and cfg.input_mode == "tokens")
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes one page holds across every layer, K and V."""
+        per_layer = 2 * self.page_size * self.hkv * self.hd
+        return per_layer * self.cfg.n_layers * self.dtype.itemsize
+
+    def pool_state(self):
+        """Every page tensor as ONE tree: ``{"kg", "vg"}`` hold the group
+        tensors ``(n_full, P + 1, page, Hkv, D)`` (page axis 1), ``{"kt",
+        "vt"}`` the tail tensors ``(P + 1, page, Hkv, D)`` (page axis 0).
+        The leaves ARE the pool's tensors: writing them writes the pool.
+        The containers are fresh, so a caller may rebind their entries."""
+        return {"kg": dict(self.k_groups), "vg": dict(self.v_groups),
+                "kt": list(self.k_tail), "vt": list(self.v_tail)}
+
+    def set_pool_state(self, new) -> None:
+        """Adopt the tensors of a ``pool_state`` tree (the reference's
+        functional whole-pool update; in place updates need no call)."""
+        self.k_groups, self.v_groups = dict(new["kg"]), dict(new["vg"])
+        self.k_tail, self.v_tail = list(new["kt"]), list(new["vt"])
 
     def layers(self):
         """(k_pages, v_pages) per layer, in execution order (group g's

@@ -61,6 +61,22 @@ def rebuild_engine(eng, **engine_kw):
                              page_size=PAGE_SIZE, **engine_kw)
 
 
+def preempt_engine(cfg, decoders: dict, device, num_pages: int,
+                   **engine_kw):
+    """An engine over the two stacked decoders ``{"m0", "m1"}`` (rows 0
+    and 1 of one ``init_stacked_params`` tree) for the preemption fleet:
+    row 1 serves as the frozen base AND is registered as model ``"mb"``
+    (the base itself: relay-compatible, so a victim of it may be dropped
+    and re-prefilled), row 0 as ``"m0"`` (its own weights: swap only). The
+    two are consecutive rows of one tree, so the fused plane stacks them as
+    a view and nothing is copied (a tree built on its own beside rows of a
+    stacked one would need a copy, which ``core/lora.py`` refuses)."""
+    base = decoders["m1"]
+    return LocalDisaggEngine(cfg, base, {"m0": decoders["m0"], "mb": base},
+                             device=device, num_pages=num_pages,
+                             page_size=PAGE_SIZE, **engine_kw)
+
+
 def tokens(cfg, rng, n: int) -> list:
     """``n`` random token ids (ids below 4 are left to special tokens)."""
     return [int(t) for t in rng.integers(4, cfg.vocab_size, n)]

@@ -135,7 +135,10 @@ def paged_decode_rows(q, k, v, k_pages, v_pages, block_tables, pos, *,
     slot = pos_l % page
     k_pages.index_put_((pg, slot), k)
     v_pages.index_put_((pg, slot), v)
-    return paged_decode_attention(q, k_pages, v_pages, block_tables, pos + 1,
+    # rope hands q back head-major; merging a one-model axis into the rows
+    # keeps that layout as a view, which the kernel does not take
+    return paged_decode_attention(q.contiguous(), k_pages, v_pages,
+                                  block_tables, pos + 1,
                                   softcap=softcap or 0.0)
 
 

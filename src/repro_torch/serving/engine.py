@@ -30,6 +30,17 @@ task-specific decode models read that KV with no copy.
     by the full token stream, so a later prompt that extends it starts
     prefill past the finished output.
 
+Oversubscription (``preempt=True``, ``overcommit=k``): admission may draw
+the pool below the worst-case decode reserve; when the highest-priority
+pending request is page-blocked, lower-priority decodes are swapped out to
+pinned host memory or dropped and re-prefilled (``serving/preempt.py``,
+``kvcache/swap.py``), and resume with the tokens they would have produced.
+``autoscale=AutoscaleConfig(...)`` grows and shrinks the prefill worker
+pool and the decode admission reserve at step boundaries
+(``serving/autoscale.py``); ``sanitize=True`` censuses every page's state
+and refcount against the engine's holders after every step
+(``kvcache/sanitize.py``).
+
 Decode models are full fine-tunes (``DecodeModelSpec(full=...)``) or LoRA
 adapters over the engine's base weights (``DecodeModelSpec(lora=...)``).
 ``metrics=True`` (the default) publishes latency histograms, gauges and
@@ -58,17 +69,20 @@ from repro_torch.kvcache.handoff import HandoffChannel
 from repro_torch.kvcache.manager import CacheManager, CacheStats
 from repro_torch.kvcache.paged import PagedKVPool
 from repro_torch.kvcache.radix import NullPrefixIndex, PrefixIndex
+from repro_torch.kvcache.sanitize import PoolSanitizer
 from repro_torch.models import forward
 from repro_torch.params import tree_leaves
 from repro_torch.serving.api import (FINISH_ABORT, FINISH_LENGTH,
                                      RequestOutput, SamplingParams,
                                      SharedContext)
+from repro_torch.serving.autoscale import AutoscaleSignals, Autoscaler
 from repro_torch.serving.backpressure import ThroughputEWMA
 from repro_torch.serving.decode import (FusedDecodePlane, next_pow2,
                                         next_tokens)
 from repro_torch.serving.metrics import (SPAN_FIRST_TOKEN, SPAN_HANDOFF,
                                          SPAN_ROUTED, SPAN_TOKEN,
                                          MetricsRegistry)
+from repro_torch.serving.preempt import PreemptConfig, SwapManager
 from repro_torch.serving.registry import ModelRegistry, as_spec
 from repro_torch.serving.router import PrefillRouter
 from repro_torch.serving.scheduler import (ChunkedScheduler, Request,
@@ -102,6 +116,8 @@ class DecodeSeq:
     tokens: list = field(default_factory=list)  # prompt (relay keys pages
                                                 # by the full stream)
     first0: int = 2               # the handoff's first decode input token
+    priority: int = 0             # preemption rank (serving/preempt.py):
+                                  # lower priorities are victims first
 
 
 class _CounterField:
@@ -166,12 +182,28 @@ class EngineStats:
     relay_skipped = _CounterField(
         "engine_relay_skipped_total",
         "finished sequences not published (relay-incompatible decoder)")
+    preemptions = _CounterField(
+        "engine_preemptions_total",
+        "decode sequences preempted under pool pressure")
+    swap_out_pages = _CounterField(
+        "engine_swap_out_pages_total",
+        "pages gathered out to the host swap tier")
+    swap_in_pages = _CounterField(
+        "engine_swap_in_pages_total",
+        "pages written back from the host swap tier")
+    recompute_tokens = _CounterField(
+        "engine_recompute_tokens_total",
+        "cache-cold tokens re-prefilled to restore dropped victims")
+    swap_bytes = _CounterField(
+        "engine_swap_bytes_total",
+        "KV bytes moved device<->host by the swap tier")
 
     FIELDS = ("prefill_tokens_computed", "prefill_tokens_reused", "handoffs",
               "handoff_bytes", "cow_page_copies", "decode_steps",
               "decode_tokens", "decode_dispatches", "model_churn_events",
               "plane_rebuilds", "relay_publishes", "relay_pages_published",
-              "relay_skipped")
+              "relay_skipped", "preemptions", "swap_out_pages",
+              "swap_in_pages", "recompute_tokens", "swap_bytes")
 
     def __init__(self, _engine: object = None,
                  registry: MetricsRegistry | None = None):
@@ -194,8 +226,8 @@ class EngineStats:
 
     def __call__(self) -> dict:
         """ONE engine-wide stats surface: the counters, plus the per-worker
-        prefix-hit accounting rolled up (``CacheStats.merge``) and the
-        pool's occupancy."""
+        prefix-hit accounting rolled up (``CacheStats.merge``), the pool's
+        occupancy and the swap tier's population."""
         d = {name: getattr(self, name) for name in self.FIELDS}
         d["hit_ratio"] = self.hit_ratio
         d["decode_batch_mean"] = self.decode_batch_mean
@@ -215,7 +247,10 @@ class EngineStats:
                  pages_active=pool.active_count,
                  pages_cached=pool.cached_count,
                  relay_nodes=eng.prefix_index.relay_nodes,
-                 prefix_nodes=len(eng.prefix_index))
+                 prefix_nodes=len(eng.prefix_index),
+                 pages_swapped=pool.swapped_count,
+                 swapped_seqs=(len(eng.swap.records)
+                               if eng.swap is not None else 0))
         return d
 
 
@@ -368,18 +403,21 @@ class LocalDisaggEngine:
                  chunk_size: int = 64, sched_policy: str = "fcfs",
                  fused: bool | None = None, prefix_cache: bool = True,
                  relay: bool = True, metrics: bool = True, autoscale=None,
-                 sanitize: bool = False, preempt: bool = False):
+                 sanitize: bool = False, preempt: bool = False,
+                 overcommit: float = 1.0):
         self.device = resolve_device(device)
-        if autoscale is not None:
-            raise NotImplementedError("autoscaling (autoscale=...) is not "
-                                      "ported yet")
-        if preempt:
-            raise NotImplementedError("preemption (preempt=True) is not "
-                                      "ported yet")
-        if sanitize:
-            raise NotImplementedError("the pool sanitizer (sanitize=True) "
-                                      "is not ported yet")
-        if paged is False or not PagedKVPool.supports(cfg):
+        paged_ok = paged is not False and PagedKVPool.supports(cfg)
+        if sanitize and not paged_ok:
+            raise ValueError("sanitize=True requires the paged KV plane "
+                             "(the sanitizer checks page refcounts)")
+        if preempt and not paged_ok:
+            raise ValueError("preempt=True requires the paged KV plane "
+                             "(the swap tier moves pool pages)")
+        if overcommit != 1.0 and not preempt:
+            raise ValueError(
+                "overcommit > 1 oversubscribes the decode admission reserve "
+                "and is only safe with preemption armed; pass preempt=True")
+        if not paged_ok:
             raise NotImplementedError(
                 f"{cfg.name}: the dense (non-paged) fallback is not ported "
                 f"yet")
@@ -426,6 +464,21 @@ class LocalDisaggEngine:
             self, SchedulerConfig(token_budget=token_budget,
                                   chunk_size=chunk_size,
                                   policy=sched_policy))
+        #: step-boundary census of the pool (None unless sanitize=True)
+        self.sanitizer = PoolSanitizer(self) if sanitize else None
+        #: oversubscription subsystem (None unless preempt=True): the
+        #: scheduler drives its resume / preempt / grow phases and scales
+        #: the admission reserve by ``overcommit``
+        self.swap = (SwapManager(self, PreemptConfig(overcommit=overcommit))
+                     if preempt else None)
+        #: metrics-driven elastic prefill pool and decode reserve
+        self._autoscaler = (None if autoscale is None
+                            else Autoscaler(autoscale))
+        #: pages held back from prefill chunking and decode admission on
+        #: top of the tail-growth reserve (the autoscaler's decode knob)
+        self.sched_reserve_extra = 0
+        #: pages one decode_delta moves
+        self._reserve_quantum = max(1, num_pages // 32)
         self.decoders: dict[str, DecodeWorker] = {}
         self.models = ModelRegistry(self)
         self.decode_plane = None
@@ -485,8 +538,7 @@ class LocalDisaggEngine:
     def _init_metrics(self) -> None:
         """Bind the engine's instruments: histograms up front (hot paths
         hold direct references), gauges as collectors sampled only at
-        export time. Preemption, swap and autoscale instruments come with
-        those features."""
+        export time."""
         reg = self.metrics_registry
         self._h_ttft = reg.histogram(
             "engine_ttft_seconds", "submit -> first streamed token",
@@ -514,6 +566,9 @@ class LocalDisaggEngine:
         self._c_router_nonhome = reg.counter(
             "engine_router_nonhome_picks_total",
             "routing decisions away from the session's home worker")
+        self._c_autoscale = reg.counter(
+            "engine_autoscale_decisions_total",
+            "autoscaler resize decisions applied")
         reg.gauge("engine_prefill_workers", "live prefill workers",
                   fn=lambda: len(self.prefill_workers))
         reg.gauge("engine_waiting_requests", "requests awaiting admission",
@@ -522,6 +577,9 @@ class LocalDisaggEngine:
                   fn=lambda: len(self.scheduler.prefilling))
         reg.gauge("engine_active_sequences", "sequences decoding",
                   fn=lambda: len(self.scheduler.active))
+        reg.gauge("engine_sched_reserve_extra_pages",
+                  "autoscaler decode admission reserve (pages)",
+                  fn=lambda: self.sched_reserve_extra)
         reg.gauge("engine_pool_free_pages", "free pool pages",
                   fn=lambda: self.block_pool.free_count)
         reg.gauge("engine_pool_active_pages", "refcount-held pool pages",
@@ -529,6 +587,17 @@ class LocalDisaggEngine:
         reg.gauge("engine_pool_cached_pages",
                   "LRU-cached (evictable) pool pages",
                   fn=lambda: self.block_pool.cached_count)
+        reg.gauge("engine_pool_swapped_pages",
+                  "pages whose KV lives in the host swap tier",
+                  fn=lambda: self.block_pool.swapped_count)
+        reg.gauge("engine_swapped_sequences",
+                  "decode sequences parked in the swap tier",
+                  fn=lambda: (len(self.swap.records)
+                              if self.swap is not None else 0))
+        reg.gauge("engine_swap_host_bytes",
+                  "host memory held by swapped-out KV",
+                  fn=lambda: (self.swap.host.total_bytes
+                              if self.swap is not None else 0))
         reg.gauge("engine_prefix_nodes", "radix prefix-index nodes",
                   fn=lambda: len(self.prefix_index))
         reg.gauge("engine_relay_nodes",
@@ -557,6 +626,78 @@ class LocalDisaggEngine:
         self._h_queue.observe(len(sched.waiting) + len(sched.prefilling))
         pool = self.block_pool
         self._h_occ.observe(1.0 - pool.free_count / pool.num_blocks)
+
+    # ------------------------------------------------------------------
+    # elastic prefill:decode scaling (serving/autoscale.py)
+    # ------------------------------------------------------------------
+    def _autoscale_signals(self) -> AutoscaleSignals:
+        """The control loop's inputs from the live engine state and the
+        metric windows (TTFT/ITL p95 read off the histograms)."""
+        sched = self.scheduler
+        backlog_tokens = (sum(r.n - r.done for r in sched.prefilling)
+                          + sum(r.n for r in sched.waiting))
+        rates = [w.ewma.s_per_token for w in self.prefill_workers]
+        spt = sum(rates) / len(rates)
+        slots = max(sched.cfg.token_budget, 1)
+        pool = self.block_pool
+        return AutoscaleSignals(
+            prefill_backlog_tokens=backlog_tokens,
+            prefill_backlog_s=backlog_tokens * spt,
+            decode_occupancy=len(sched.active) / slots,
+            free_page_frac=pool.free_count / pool.num_blocks,
+            ttft_p95_s=self._h_ttft.percentile(95),
+            itl_p95_s=self._h_itl.percentile(95),
+            n_prefill=len(self.prefill_workers),
+            n_decode=1,
+            inflight_decode=len(sched.active))
+
+    def _autoscale_tick(self) -> None:
+        """Step-boundary resize hook (the scheduler calls it right after
+        model churn applies, the one place worker-set changes are legal).
+        ``prefill_delta`` resizes the real worker pool; ``decode_delta``
+        moves the decode admission reserve, since the decode plane is one
+        fused step: more decode capacity means pages held back from prefill
+        so promotions never squeeze running generations."""
+        if self._autoscaler is None:
+            return
+        d = self._autoscaler.tick(self._autoscale_signals(),
+                                  time.monotonic())
+        if d.prefill_delta > 0:
+            self._add_prefill_worker()
+            self._c_autoscale.inc()
+        elif d.prefill_delta < 0:
+            if self._remove_prefill_worker():
+                self._c_autoscale.inc()
+        if d.decode_delta:
+            self.sched_reserve_extra = min(
+                max(self.sched_reserve_extra
+                    + d.decode_delta * self._reserve_quantum, 0),
+                self.block_pool.num_blocks // 2)
+
+    def _add_prefill_worker(self) -> None:
+        """Grow the prefill pool by one worker sharing the engine's page
+        pool, radix tree, base params and stats cells (no weight copy); the
+        router sees it at the next pick."""
+        self.prefill_workers.append(PrefillWorker(
+            len(self.prefill_workers), self.cfg, self.base_params,
+            self.kvpool, self.block_pool, self.stats,
+            index=self.prefix_index))
+        self.router.n = len(self.prefill_workers)
+
+    def _remove_prefill_worker(self) -> bool:
+        """Shrink the prefill pool by one, only if the LAST worker is idle:
+        no live session, no admitted request routed to it, no pending chunk
+        work. Returns False (decision deferred) otherwise; never drops below
+        one worker."""
+        if len(self.prefill_workers) <= 1:
+            return False
+        w = self.prefill_workers[-1]
+        if (w.sessions or w.pending_chunk_tokens
+                or any(r.worker is w for r in self.scheduler.prefilling)):
+            return False
+        self.prefill_workers.pop()
+        self.router.n = len(self.prefill_workers)
+        return True
 
     # ------------------------------------------------------------------
     # model lifecycle (driven by ModelRegistry)
@@ -621,20 +762,27 @@ class LocalDisaggEngine:
             self.stats.plane_rebuilds += 1
 
     def _has_inflight(self, model_id: str) -> bool:
-        """Any live work addressed to ``model_id`` (waiting, prefilling or
-        decoding)? Gates drain completion and plane-lane retirement."""
+        """Any live work addressed to ``model_id`` (waiting, prefilling,
+        decoding or parked)? Gates drain completion and plane-lane
+        retirement."""
         return bool(self._inflight_rids(model_id))
 
     def _inflight_rids(self, model_id: str) -> list[int]:
+        """Live requests of ``model_id``: waiting, prefilling, decoding or
+        parked in the swap tier."""
         sched = self.scheduler
+        parked = ([rid for rid, rec in self.swap.records.items()
+                   if rec.seq.model_id == model_id]
+                  if self.swap is not None else [])
         return ([r.rid for r in sched.waiting if r.model_id == model_id]
                 + [r.rid for r in sched.prefilling if r.model_id == model_id]
-                + [s.rid for s in sched.active if s.model_id == model_id])
+                + [s.rid for s in sched.active if s.model_id == model_id]
+                + parked)
 
     # ------------------------------------------------------------------
     def _handoff_seq(self, block_table, n: int, sid: int, model_id: str,
                      params: SamplingParams, first_token: int,
-                     rid: int, tokens=None) -> DecodeSeq:
+                     rid: int, tokens=None, priority: int = 0) -> DecodeSeq:
         """Zero-copy handoff: block-table reference + page refcounts, with a
         copy-on-write clone of a partially filled tail page so the decode
         sequence can append privately. Raises PoolExhausted (with the
@@ -673,7 +821,7 @@ class LocalDisaggEngine:
         return DecodeSeq(rid, sid, model_id, bt, shared, private, n,
                          first_token, params.max_tokens, params,
                          tokens=list(tokens) if tokens is not None else [],
-                         first0=first_token)
+                         first0=first_token, priority=priority)
 
     def _submit(self, rid: int, sid: int, tokens: list, model_id: str | None,
                 params: SamplingParams, first_token: int,
@@ -701,7 +849,8 @@ class LocalDisaggEngine:
             self._on_request_done(rid, FINISH_LENGTH)
             return
         self.scheduler.add_decode_seq(self._handoff_seq(
-            bt, n, sid, model_id, params, first_token, rid, tokens=tokens))
+            bt, n, sid, model_id, params, first_token, rid, tokens=tokens,
+            priority=priority))
 
     # ------------------------------------------------------------------
     # request-centric API (repro_torch.serving.api)
@@ -767,7 +916,9 @@ class LocalDisaggEngine:
         reclaimed; cached prefix pages return to the LRU cache, partially
         written tail pages are dropped. Decoding: its handoff refs and
         private pages are released. In every case the pool's free-page
-        count returns exactly to its pre-request baseline."""
+        count returns exactly to its pre-request baseline. Parked in the
+        swap tier: its prefix refs are released, its still-resident swapped
+        rows freed and its host copy discarded."""
         rid = request.request_id if isinstance(request, RequestOutput) \
             else int(request)
         if rid in self._done:
@@ -787,6 +938,11 @@ class LocalDisaggEngine:
             elif not r.committed:   # committed: the session owns the pages
                 r.worker.mgr.abandon(r.alloc)
                 r.worker.pending_chunk_tokens -= r.n - r.done
+            self._on_request_done(rid, FINISH_ABORT)
+            return True
+        if self.swap is not None and rid in self.swap.records:
+            # revoked rows already belong to their new owners: untouched
+            self.swap.abort(rid)
             self._on_request_done(rid, FINISH_ABORT)
             return True
         for s in sched.active:

@@ -23,14 +23,20 @@ handoff's copy-on-write clone) holds that request (pages it already
 computed stay put) and retries after decode steps free pages; a step that
 can make no progress at all raises ``PoolExhausted`` rather than spinning.
 
+Oversubscription (``engine.swap``, ``serving/preempt.py``): with
+preemption armed the admission reserve is scaled down by the overcommit
+factor, parked victims resume and page-blocked high-priority work preempts
+lower-priority decodes after admission (``_oversub_phase``), and an
+emergency eviction right before decode keeps tail growth from failing
+mid-step (``_tail_growth_guard``). A drop-and-recompute victim re-enters as
+an internal request (``Request.resume_seq``). The autoscaler resizes the
+prefill pool and the decode reserve at the step boundary
+(``engine._autoscale_tick``), and the pool sanitizer censuses every page
+after the step (``engine.sanitizer``).
+
 The same object runs eager mode (chunking off): ``generate`` prefills whole
 prompts synchronously, nothing waits in the queues, and a step is
 decode-only.
-
-Not ported yet: preemption and its oversubscription phases
-(``_oversub_phase``, ``_tail_growth_guard``, ``Request.resume_seq``),
-autoscaling and its extra decode reserve (``_autoscale_tick``), and the pool
-sanitizer.
 """
 from __future__ import annotations
 
@@ -89,6 +95,8 @@ class Request:
     done: int = 0                # tokens whose KV is in pages (incl. cached)
     committed: bool = False      # published to the radix index / session
     sibling_bt: list | None = None   # identical-context fast path table
+    resume_seq: object = None    # preempted DecodeSeq this request restores
+                                 # (drop-and-recompute, serving/preempt.py)
 
     def __post_init__(self):
         self.tok_hash = hash(tuple(self.tokens))
@@ -127,7 +135,15 @@ class ChunkedScheduler:
         self.active.append(seq)
 
     def has_work(self) -> bool:
-        return bool(self.waiting or self.prefilling or self.active)
+        return bool(self.waiting or self.prefilling or self.active
+                    or self._swap_parked())
+
+    def _swap_parked(self) -> bool:
+        """Swap-mode preemption victims parked off the step loop: still the
+        engine's work (they resume and finish) though they sit in none of
+        the three queues."""
+        swap = self.engine.swap
+        return swap is not None and swap.parked
 
     def run(self) -> None:
         while self.has_work():
@@ -137,27 +153,68 @@ class ChunkedScheduler:
     def step(self) -> None:
         """One engine step: reap finished sequences (their budget slots and
         pages free BEFORE this step's packing); apply deferred model churn;
-        observe the step's metrics; admit; pack prefill chunks under the budget; promote finished
-        prefills (zero-copy handoff); advance every active sequence one
-        decode token."""
+        observe the step's metrics and let the autoscaler act on them;
+        admit; resume or preempt (oversubscription); pack prefill chunks
+        under the budget; promote finished prefills (zero-copy handoff);
+        guard tail growth; advance every active sequence one decode token;
+        census the pool (sanitizer)."""
         self.stats.steps += 1
         progress = self._reap_finished()
         # step boundary: finalize drained unregisters (the reap may have
         # retired a draining model's last sequence) and relayout the fused
         # plane; lane indices are re-derived from the new plane this step
         self.engine.models.sync()
-        # same boundary: queue depth and pool occupancy into the metrics
+        # same boundary: queue depth and pool occupancy into the metrics,
+        # then the autoscaler resizes the prefill pool or the decode
+        # reserve off those signals (worker-set changes are legal only here)
         self.engine._observe_step()
+        self.engine._autoscale_tick()
         progress += self._admit()
+        progress += self._oversub_phase()
         budget = self.cfg.token_budget - len(self.active)
         progress += self._run_chunks(self._plan_chunks(budget))
         progress += self._promote()
+        progress += self._tail_growth_guard()
         progress += self._decode_phase()
-        if progress == 0 and (self.waiting or self.prefilling):
+        if self.engine.sanitizer is not None:
+            # step boundary: every transient ref has settled, so the
+            # pool / index / holder census must hold exactly here
+            self.engine.sanitizer.check_step()
+        if progress == 0 and (self.waiting or self.prefilling
+                              or self._swap_parked()):
+            if self.engine.sched_reserve_extra > 0:
+                # the autoscaler's extra decode headroom is advisory: if it
+                # is all that blocks progress, give it back and retry
+                self.engine.sched_reserve_extra = 0
+                return
+            swap = self.engine.swap
             raise PoolExhausted(
                 f"scheduler stalled: {len(self.waiting)} waiting / "
-                f"{len(self.prefilling)} prefilling requests cannot obtain "
-                f"pages and no decode is active to free any")
+                f"{len(self.prefilling)} prefilling / "
+                f"{len(swap.records) if swap is not None else 0} swapped-out "
+                f"requests cannot obtain pages and no decode is active to "
+                f"free any")
+
+    # ---- oversubscription (serving/preempt.py) -------------------------
+    def _oversub_phase(self) -> int:
+        """After admission, before chunk packing: resume parked victims when
+        pages allow, then preempt low-priority decodes when the highest-
+        priority pending request is page-blocked. Runs before the budget is
+        computed so a resumed sequence claims its decode slot this step."""
+        swap = self.engine.swap
+        if swap is None:
+            return 0
+        return swap.resume_step(self) + swap.preempt_step(self)
+
+    def _tail_growth_guard(self) -> int:
+        """Right before decode: with overcommit the admission reserve is
+        under-scaled on purpose, so the pool may lack the tail pages the
+        coming decode step must allocate; evict victims until it cannot
+        fail mid-flight."""
+        swap = self.engine.swap
+        if swap is None:
+            return 0
+        return swap.grow_guard(self)
 
     # ---- admission ----------------------------------------------------
     def _admit(self) -> int:
@@ -193,6 +250,10 @@ class ChunkedScheduler:
                 r.done = r.alloc.cached_tokens
                 self.engine.stats.prefill_tokens_reused += r.done
                 w.pending_chunk_tokens += r.n - r.done
+            if r.resume_seq is not None:
+                # drop-and-recompute restore: the cache-cold tail of the
+                # victim's stream is genuine recompute work
+                self.engine.stats.recompute_tokens += r.n - r.done
             self.prefilling.append(r)
             admitted += 1
         return admitted
@@ -204,8 +265,9 @@ class ChunkedScheduler:
         page = self.engine.page_size
         chunks = []
         # prefill never takes the pool below the pages active decodes are
-        # still entitled to (worst-case tail growth), so chunking cannot
-        # starve the decode plane mid-flight
+        # still entitled to (worst-case tail growth, overcommit-scaled) plus
+        # the autoscaler's extra decode headroom, so chunking cannot starve
+        # the decode plane mid-flight
         reserve = self._reserve_target()
         pool = self.engine.block_pool
         pending = [r for r in self.prefilling
@@ -284,10 +346,15 @@ class ChunkedScheduler:
             for s in self.active)
 
     def _reserve_target(self) -> int:
-        """Admission floor: the decode reserve. The reference scales it
-        down under preemption's overcommit and adds the autoscaler's extra
-        headroom; neither preemption nor autoscaling is ported yet."""
-        return self._decode_reserve()
+        """Admission floor: the decode reserve, scaled down by the
+        overcommit factor when preemption is armed (victims are the escape
+        hatch, so the pool may admit beyond the strict worst case), plus
+        the autoscaler's extra decode headroom."""
+        reserve = self._decode_reserve()
+        swap = self.engine.swap
+        if swap is not None and swap.cfg.overcommit > 1.0:
+            reserve = -(-reserve // swap.cfg.overcommit)
+        return int(reserve) + self.engine.sched_reserve_extra
 
     # ---- prefill -> decode handoff -------------------------------------
     def _commit_request(self, r: Request) -> None:
@@ -341,7 +408,7 @@ class ChunkedScheduler:
             try:
                 seq = self.engine._handoff_seq(
                     bt, r.n, r.sid, r.model_id, r.params, r.first_token,
-                    r.rid, tokens=r.tokens)
+                    r.rid, tokens=r.tokens, priority=r.priority)
             except PoolExhausted:
                 self.stats.stalls += 1   # CoW clone page unavailable: retry
                 continue
@@ -349,7 +416,13 @@ class ChunkedScheduler:
                 pool.unref(r.sibling_bt)   # the handoff holds its own refs
             self.prefilling.remove(r)
             self.active.append(seq)
-            self.promoted.append(r.rid)
+            if r.resume_seq is not None:
+                # drop-and-recompute restore: graft the victim's identity
+                # onto the re-prefilled sequence; its rid already completed
+                # its public prefill, so it is not promoted again
+                self.engine.swap.finish_recompute_resume(r, seq)
+            else:
+                self.promoted.append(r.rid)
             promoted += 1
         return promoted
 

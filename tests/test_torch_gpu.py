@@ -568,3 +568,89 @@ def test_lora_group_on_card_identical_to_materialized(card, name, dtype):
                 for i, m in enumerate(("l0", "l1", "l2", "l0"))]
             outs[mode] = [r.result().tolist() for r in reqs]
     assert outs["lora"] == outs["full"] == outs["per-model"]
+
+
+# ======================================================================
+# the host swap tier and preemption on the card
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_host_swap_pool_round_trip_on_card(card, dtype):
+    """``HostSwapPool`` on a CUDA pool at Llama-3.1-8B's KV heads (8 of
+    head_dim 128, page 16; a layer group and a tail layer): ``put`` lands
+    the pages in pinned host tensors, ``restore`` of a subset into OTHER
+    rows is bit-equal to what ``put`` read, sentinel row 0 stays zero, and
+    every transfer's bytes and seconds reach ``observe``."""
+    from repro_torch.kvcache.paged import PagedKVPool
+    from repro_torch.kvcache.swap import HostSwapPool, _leaves
+    cfg = ModelConfig(name="swap-card", arch_type="dense", n_layers=3,
+                      d_model=256, n_heads=32, n_kv_heads=8, head_dim=128,
+                      d_ff=512, vocab_size=64, dtype=dtype,
+                      layer_pattern=(ATTN, ATTN))
+    pool = PagedKVPool(cfg, 40, 16, device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    for _, _, a, _ in _leaves(pool.pool_state()):
+        a.copy_(torch.randn(a.shape, generator=g, device=card))
+        a.select(1 if a.dim() == 5 else 0, 0).zero_()
+    src = [3, 9, 17, 4, 30]                       # 5 pages: bucket 8
+    idx = torch.tensor(src, device=card)
+    before = [a.index_select(axis, idx).cpu()
+              for _, _, a, axis in _leaves(pool.pool_state())]
+    seen = []
+    host = HostSwapPool(observe=lambda b, s: seen.append((b, s)))
+    nbytes = host.put(pool, 1, src)
+    assert nbytes == 5 * pool.page_bytes
+    for key in ("kg", "vg"):
+        for h in host._entries[1]["host"][key].values():
+            assert h.is_pinned() and h.device.type == "cpu"
+    dst, pos = [5, 6, 7, 8], [4, 0, 2, 3]        # bucket 4, no pad; then 3
+    host.restore(pool, 1, pos, dst)
+    host.restore(pool, 1, [1, 3, 0], [31, 32, 33])
+    sel = torch.tensor(pos)
+    sel3 = torch.tensor([1, 3, 0])
+    for (_, _, a, axis), b in zip(_leaves(pool.pool_state()), before):
+        got = a.index_select(axis, torch.tensor(dst, device=card)).cpu()
+        assert torch.equal(got, b.index_select(axis, sel))
+        got = a.index_select(axis, torch.tensor([31, 32, 33],
+                                                device=card)).cpu()
+        assert torch.equal(got, b.index_select(axis, sel3))
+        assert not a.select(axis, 0).any(), "row 0 written"
+    assert [b for b, _ in seen] == [nbytes, 4 * pool.page_bytes,
+                                    3 * pool.page_bytes]
+    assert all(s > 0 for _, s in seen)
+    host.pop(1)
+    assert host.total_bytes == 0 and len(host) == 0
+
+
+@pytest.mark.parametrize("mode", ["swap", "recompute"])
+def test_preempting_toy_engine_on_card_matches_cpu(card, mode):
+    """tests/test_preempt.py's contention fleet (18 pages of 8) armed with
+    ``preempt=True, overcommit=2.0, sanitize=True`` in a forced mode: card
+    tokens equal the CPU's and an unarmed run's, with the same counters."""
+    cfg, cpu = _toy_weights("hd16")
+
+    def fleet(dev, **kw):
+        base = tree_map(lambda t: t.to(dev), cpu["base"])
+        eng = LocalDisaggEngine(cfg, base, device=dev, num_pages=18,
+                                page_size=8, chunked=True, **kw)
+        eng.models.register("m", base)
+        if eng.swap is not None:
+            eng.swap.cfg.mode = mode
+        lo = [eng.generate("m", [2 + i] * 9, SamplingParams(max_tokens=40),
+                           priority=0) for i in range(2)]
+        for _ in range(4):
+            eng.step()
+        hi = [eng.generate("m", [30 + i] * 17, SamplingParams(max_tokens=6),
+                           priority=5) for i in range(2)]
+        eng.run()
+        keys = ("preemptions", "swap_out_pages", "swap_in_pages",
+                "recompute_tokens", "swap_bytes")
+        assert eng.block_pool.free_count == 18
+        return ([h.result().tolist() for h in lo + hi],
+                {k: eng.stats()[k] for k in keys})
+
+    armed = dict(preempt=True, overcommit=2.0, sanitize=True)
+    got, n_card = fleet(card, **armed)
+    want, n_cpu = fleet("cpu", **armed)
+    assert got == want == fleet(card)[0]
+    assert n_card == n_cpu and n_card["preemptions"] >= 1

@@ -57,4 +57,9 @@ print(" ".join(names))
             "repro_torch.serving.scheduler.scheduler",
             "repro_torch.serving.sampling",
             "repro_torch.serving.metrics",
-            "repro_torch.core.lora"} <= visited
+            "repro_torch.core.lora",
+            "repro_torch.kvcache.swap",
+            "repro_torch.kvcache.sanitize",
+            "repro_torch.serving.preempt",
+            "repro_torch.serving.costmodel",
+            "repro_torch.serving.autoscale"} <= visited
