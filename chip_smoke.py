@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
   2. each Hopper kernel against its plain PyTorch version: the reference's
      kernel-test cases (plus head_dim 16, the toy configs', and a query
      group of 16 at head_dim 256), chatglm3-6b's heads (group 16) at decode
-     and chunk shapes for both paged kernels in fp32 (2e-5) and bf16, and
+     and chunk shapes for both paged kernels in fp32 (2e-5) and bf16,
+     granite-moe-3b-a800m's (group 3 at head_dim 64) at the engine's decode
+     step, the chunk shapes and the folded write for all three paged
+     kernels in fp32 and bf16, timed (heads read from the configs), and
      the main path's shapes (bf16 held to ``kernels.ref.MAIN_SHAPE_BF16_TOL``
      and ``MAIN_SHAPE_PREFILL_BF16_TOL``; ``paged_decode`` at B=8 and at the
      engine's own B=4 decode step, ``DECODE_SHAPES``, with the split count
@@ -106,7 +109,27 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      cost model's re-prefill prediction beside the measured chunk time,
      auto mode's choices, high-priority TTFT/ITL p50/p95 armed and
      unarmed, and the greedy tokens that agree with the unarmed run (not
-     asserted in bf16).
+     asserted in bf16);
+  12. (after phase 10) MoE on the paged main path: granite-moe-3b-a800m
+     at full width and depth (bf16, seeded random weights with output
+     projections scaled by ``main_path.OUT_SCALE``), phase 4's traffic
+     eager, then phase 5's chunked over the same weights on a fresh pool:
+     launches of ``paged_write`` (eager), ``flash_prefill_paged``
+     (chunked) and ``paged_decode`` (both), counted just before and read
+     just after each path, the memory bound, free pages back to baseline,
+     TTFT/ITL p50/p95, the prefills' ``dropped_frac`` by forward shape and
+     the chunked-against-eager token agreement (printed: expert capacity
+     depends on each forward's S); then 4 layers in fp32: the base's
+     logits and the greedy tokens, eager and chunked, card == CPU;
+  13. the dense fallback at full width, one arch at a time (weights freed
+     before the next): mamba2-780m, recurrentgemma-2b,
+     seamless-m4t-medium and gemma2-27b (4 layers), a base and two
+     decoders, one session (a 1000-token context, two turns of one
+     32-token request per model, a seeded sampled request and a one-shot
+     one): prefix reuse, the session's pages released by ``end_session``,
+     peak memory while serving within the weights + 2 GiB, TTFT, the B=1
+     decode loop's wall a token; then 2-3 layers in fp32: the base's
+     logits and the greedy tokens, card == CPU.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -201,10 +224,19 @@ PAGED_CASES = [
     (4, 2, 1, 16, 8, 4, 20),           # head_dim 16 (the toy configs)
     (2, 16, 1, 256, 16, 4, 12),        # group 16 at head_dim 256
 ]
-# chatglm3-6b's heads (src/repro/configs/chatglm3_6b.py: 32 query heads over
-# 2 kv heads, a query group of 16, head_dim 128), page 16: paged-eligible in
-# the reference, and taken by both paged kernels
-CHATGLM = dict(Hq=32, Hkv=2, D=128, page=16)
+
+
+def config_heads(name: str, page: int = 16) -> dict:
+    """A config's attention heads (``repro_torch.configs``) with a page
+    size: chatglm3-6b's (32 query heads over 2 kv heads, a query group of
+    16, head_dim 128) are paged-eligible in the reference and taken by both
+    paged kernels; granite-moe-3b-a800m's (24 over 8, a group of 3, head_dim
+    64) are phase 12's main path."""
+    from repro_torch.configs.base import get_config
+    c = get_config(name)
+    return dict(Hq=c.n_heads, Hkv=c.n_kv_heads, D=c.head_dim, page=page)
+
+
 PREFILL_CASES = [
     # B, Hq, Hkv, D, page, npages, pool, S  (tests/test_kernels.py)
     (2, 4, 2, 64, 8, 4, 16, 5),        # chunk boundary mid-page
@@ -236,20 +268,22 @@ DECODE_SHAPES = {"main": (8, 256, (1024, 4097), False),
                  "engine": (4, 128, (1032, 1101), True)}
 
 
-def decode_shape_inputs(name, g):
+def decode_shape_inputs(name, g, heads=(32, 8, 128, 16), dtype=None):
     """q, k/v pools, block tables and lengths of DECODE_SHAPES[name] on the
-    card, bf16; random values from the CUDA generator ``g``, lengths (and
-    the engine layout's pages) from numpy seed 0."""
+    card, bf16 unless ``dtype``, Llama-3.1-8B's heads unless ``heads`` (Hq,
+    Hkv, D, page); random values from the CUDA generator ``g``, lengths
+    (and the engine layout's pages) from numpy seed 0."""
     import numpy as np
     import torch
     B, npages, (lo, hi), engine = DECODE_SHAPES[name]
-    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
+    (Hq, Hkv, D, page), P = heads, 2049
+    dtype = dtype or torch.bfloat16
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     ln = rng.integers(lo, hi, B)
-    q = torch.randn((B, Hq, D), generator=g, device=dev).bfloat16()
-    kp = torch.randn((P, page, Hkv, D), generator=g, device=dev).bfloat16()
-    vp = torch.randn((P, page, Hkv, D), generator=g, device=dev).bfloat16()
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(dtype)
+    kp = torch.randn((P, page, Hkv, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((P, page, Hkv, D), generator=g, device=dev).to(dtype)
     if engine:
         bt = np.zeros((B, npages), np.int64)
         perm = rng.permutation(np.arange(1, P))
@@ -286,10 +320,10 @@ def phase_kernels(card):
 
     from repro_torch.kernels.paged_decode import (choose_splits,
                                                   paged_decode_attention)
-    from repro_torch.kernels.paged_write import (launch_on_device_tables,
-                                                 paged_write)
+    from repro_torch.kernels.paged_write import paged_write
     from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
                                          ref_paged_decode, ref_paged_write)
+    from repro_torch.launch.main_path import MOE_MODEL
 
     dev = torch.device("cuda")
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -321,7 +355,7 @@ def phase_kernels(card):
                     f"max|err| {err:.3e} (tol {tol[dtype]})")
 
     # --- paged_decode at chatglm3-6b's heads, 1k-4k tokens
-    c = CHATGLM
+    c = config_heads("chatglm3-6b")
     lengths = torch.tensor(np.random.default_rng(1).integers(1024, 4097, 4),
                            dtype=torch.int32, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
@@ -341,28 +375,37 @@ def phase_kernels(card):
                 f"max|err| {err:.3e} (tol {t})")
 
     # --- paged_decode at the main path's shapes: chip_smoke's B=8 and the
-    # engine's own B=4 step (DECODE_SHAPES)
+    # engine's own B=4 step (DECODE_SHAPES), Llama-3.1-8B's heads in bf16;
+    # then the engine step at granite-moe-3b-a800m's heads (phase 12) in
+    # bf16 and fp32
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gr = config_heads(MOE_MODEL)
+    granite = (gr["Hq"], gr["Hkv"], gr["D"], gr["page"])
+    bf16, fp32 = torch.bfloat16, torch.float32
     dec = {}
-    for name in DECODE_SHAPES:
-        q, kp, vp, bt, ln = decode_shape_inputs(name, g)
+    for label, name, heads, dtype in (
+            ("main", "main", (32, 8, 128, 16), bf16),
+            ("engine", "engine", (32, 8, 128, 16), bf16),
+            ("granite-moe engine", "engine", granite, bf16),
+            ("granite-moe engine", "engine", granite, fp32)):
+        q, kp, vp, bt, ln = decode_shape_inputs(name, g, heads, dtype)
         B, Hq, D = q.shape
         page, Hkv = kp.shape[1], kp.shape[2]
         npages = bt.shape[1]
         splits = choose_splits(B, Hkv, npages * page, sms)
+        tol_d = (MAIN_SHAPE_BF16_TOL if dtype == bf16
+                 else {"atol": 2e-5, "rtol": 2e-5})
         got = paged_decode_attention(q, kp, vp, bt, ln)
         want = ref_paged_decode(q, kp, vp, bt, ln)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rel = ((got.float() - want.float()).norm()
                / want.float().norm()).item()
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **MAIN_SHAPE_BF16_TOL)
+        torch.testing.assert_close(got.float(), want.float(), **tol_d)
         capped = paged_decode_attention(q, kp, vp, bt, ln, softcap=30.0)
         want_c = ref_paged_decode(q, kp, vp, bt, ln, softcap=30.0)
         torch.cuda.synchronize()
-        torch.testing.assert_close(capped.float(), want_c.float(),
-                                   **MAIN_SHAPE_BF16_TOL)
+        torch.testing.assert_close(capped.float(), want_c.float(), **tol_d)
         err_c = (capped.float() - want_c.float()).abs().max().item()
         del capped, want_c
         ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, bt, ln))
@@ -375,20 +418,26 @@ def phase_kernels(card):
             qg, kd, vd, attn_mask=mask))
         L = int(ln.sum())
         live_pages = int(((ln + page - 1) // page).sum())
-        nbytes = (L * Hkv * D * 2 * 2 + 2 * q.numel() * 2
+        isz = q.element_size()
+        nbytes = (L * Hkv * D * 2 * isz + 2 * q.numel() * isz
                   + live_pages * 4 + B * 4)
-        bound = max(nbytes / HBM_BYTES_PER_S,
-                    4 * Hq * D * L / BF16_FLOPS) * 1e3
-        log(f"[paged_decode] {name} shape B={B} Hq={Hq} Hkv={Hkv} D={D} "
-            f"page={page} npages={npages} bf16 lengths {ln.tolist()}, "
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 4 * Hq * D * L / (BF16_FLOPS if dtype == bf16
+                                  else FP32_FLOPS)
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[paged_decode] {label} shape B={B} Hq={Hq} Hkv={Hkv} "
+            f"(group {Hq // Hkv}) D={D} page={page} npages={npages} "
+            f"{str(dtype).removeprefix('torch.')} lengths {ln.tolist()}, "
             f"{splits} key part(s) on {sms} SMs: max|err| {err:.3e}, "
             f"relative norm {rel:.3e}, softcap 30 max|err| {err_c:.3e} "
-            f"(tol {MAIN_SHAPE_BF16_TOL}); kernel "
+            f"(tol {tol_d}); kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa on pre-gathered dense "
-            f"K/V (gather excluded) {lib:.4f} ms, bound {bound:.4f} ms "
-            f"({nbytes} B) on {card}")
-        dec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=bound, bound_by="bytes", library_ms=lib)
+            f"K/V (gather excluded) {lib:.4f} ms, bound {bound:.4f} ms by "
+            f"{by} ({nbytes} B) on {card}")
+        dec[(label, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                   bound_ms=bound, bound_by=by,
+                                   library_ms=lib)
         del q, kp, vp, kd, vd
 
     # --- paged_write: reference cases, then Llama's 32 folded layers
@@ -410,14 +459,45 @@ def phase_kernels(card):
             assert torch.equal(kpool, wk) and torch.equal(vpool, wv), case
             log(f"[paged_write] case {case} {dtype}: bitwise equal")
 
+    # Llama-3.1-8B's 32 folded layers (bf16), then granite-moe-3b-a800m's
+    # (Hkv 8, D 64; phase 12's eager prefill) in bf16 and fp32
+    wr = {}
+    for label, (Hkv, D), dtype in (
+            ("Llama", (8, 128), bf16),
+            ("granite-moe", (gr["Hkv"], gr["D"]), bf16),
+            ("granite-moe", (gr["Hkv"], gr["D"]), fp32)):
+        wr[(label, dtype)] = write_fold(card, g, label, Hkv, D, dtype)
+    torch.cuda.empty_cache()
+    return {
+        "flash_prefill": phase_flash_kernel(card),
+        "flash_prefill_paged": phase_prefill_kernel(card),
+        "paged_decode": dec[("main", bf16)],
+        "paged_write": wr[("Llama", bf16)],
+    }
+
+
+def write_fold(card, g, label, Hkv, D, dtype):
+    """paged_write of 32 folded layers' 1024-token prompt (the eager
+    prefill's one launch per group), ``Hkv`` x ``D`` heads, page 16, a
+    2049-page pool: bitwise equal to the plain version, pages past n_valid
+    untouched; timed with tables on the card, through the wrapper, plain,
+    and ``index_copy_``. Returns the JSON record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.paged_write import (launch_on_device_tables,
+                                                 paged_write)
+    from repro_torch.kernels.ref import ref_paged_write
+
+    dev = torch.device("cuda")
     n_full, prompt, npg = 32, 1024, 64
-    Hkv, D, page, P1 = 8, 128, 16, 2049           # Llama-3.1-8B's pool
+    page, P1 = 16, 2049
     nk = torch.randn((n_full, prompt, Hkv, D), generator=g,
-                     device=dev).to(torch.bfloat16)
+                     device=dev).to(dtype)
     nv = torch.randn((n_full, prompt, Hkv, D), generator=g,
-                     device=dev).to(torch.bfloat16)
+                     device=dev).to(dtype)
     kpool = torch.randn((n_full * P1, page, Hkv, D), generator=g,
-                        device=dev).to(torch.bfloat16)
+                        device=dev).to(dtype)
     vpool = torch.randn_like(kpool)
     pages = np.random.default_rng(2).permutation(np.arange(1, P1))[:npg]
     tbl = (pages[None] + (np.arange(n_full) * P1)[:, None]).astype(np.int32)
@@ -452,32 +532,27 @@ def phase_kernels(card):
         kpool.index_copy_(0, valid, src_k)
         vpool.index_copy_(0, valid, src_v)
     wr_lib = cuda_ms(lib_write)
-    rows = int(valid.numel()) * page * Hkv * D * 2      # bf16 bytes, one tensor
+    rows = int(valid.numel()) * page * Hkv * D * kpool.element_size()
     wr_bytes = 2 * 2 * rows + tbl.size * 4 + nvl.size * 4
     wr_bound = wr_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[paged_write] Llama fold: {n_full} layers x {prompt}-token prompt "
-        f"({npg - 4}/{npg} pages valid) bf16: bitwise equal, pages past "
+    log(f"[paged_write] {label} fold: {n_full} layers x {prompt}-token "
+        f"prompt, Hkv={Hkv} D={D} ({npg - 4}/{npg} pages valid) "
+        f"{str(dtype).removeprefix('torch.')}: bitwise equal, pages past "
         f"n_valid untouched; kernel {wr_ms:.4f} ms (tables on the card), "
         f"wrapper with host check and uploads {wr_wrapper:.4f} ms, plain "
         f"{wr_plain:.4f} ms,"
         f" index_copy_ (k and v) {wr_lib:.4f} ms, bound {wr_bound:.4f} ms "
         f"({wr_bytes} B) on {card}")
     del nk, nv, kpool, vpool, src_k, src_v
-    torch.cuda.empty_cache()
-    return {
-        "flash_prefill": phase_flash_kernel(card),
-        "flash_prefill_paged": phase_prefill_kernel(card),
-        "paged_decode": dec["main"],
-        "paged_write": dict(max_abs_err=wr_err, ms=wr_ms, plain_ms=wr_plain,
-                            bound_ms=wr_bound, bound_by="bytes",
-                            library_ms=wr_lib),
-    }
+    return dict(max_abs_err=wr_err, ms=wr_ms, plain_ms=wr_plain,
+                bound_ms=wr_bound, bound_by="bytes", library_ms=wr_lib)
 
 
 def prefill_bound_ms(start, S, Hq, Hkv, D, page, npages, itemsize) -> tuple:
     """(bound ms, "bytes" or "operations", bytes, flops) of one
     flash_prefill_paged call: each visible K/V row, q and the output moved
-    once; 4 * Hq * D flops per visible (query, key) pair."""
+    once; 4 * Hq * D flops per visible (query, key) pair, at the peak for
+    the type (bf16 tensor cores, or fp32 outside them)."""
     T = npages * page
     B = len(start)
     kv_rows = sum(min(st + S, T) for st in start)
@@ -485,7 +560,8 @@ def prefill_bound_ms(start, S, Hq, Hkv, D, page, npages, itemsize) -> tuple:
     nbytes = (kv_rows * Hkv * D * 2 * itemsize + 2 * B * S * Hq * D * itemsize
               + B * npages * 4 + B * 4)
     flops = 4 * Hq * D * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -552,7 +628,7 @@ def phase_prefill_kernel(card):
 
     # chatglm3-6b's heads (group 16) at the main path's chunk shapes, both
     # types; bf16 held to MAIN_SHAPE_PREFILL_BF16_TOL, fp32 to 2e-5
-    c = CHATGLM
+    c = config_heads("chatglm3-6b")
     for B, S, st0 in ((1, 200, 800), (4, 40, 992)):
         bt = chunk_table(B, S, st0, c["page"], 1025, 6)
         for dtype in (torch.float32, torch.bfloat16):
@@ -571,25 +647,34 @@ def phase_prefill_kernel(card):
                     f"D={c['D']} page {c['page']} {dtype} softcap {cap}: "
                     f"max|err| {err:.3e} (tol {t})")
 
-    # the chunked main path's shapes (MAIN_CHUNKS)
-    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
+    # the chunked main path's shapes (MAIN_CHUNKS) at Llama-3.1-8B's heads
+    # in bf16, then the heaviest context chunk and the turn-1 tail batch at
+    # granite-moe-3b-a800m's heads (phase 12) in bf16 and fp32
+    from repro_torch.launch.main_path import MOE_MODEL
+    gr = config_heads(MOE_MODEL)
+    P = 2049
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     perf = None
-    for B, S, st0 in MAIN_CHUNKS:
+    bf16, fp32 = torch.bfloat16, torch.float32
+    runs = [("main", (32, 8, 128, 16), bf16, c) for c in MAIN_CHUNKS] + [
+        ("granite-moe", (gr["Hq"], gr["Hkv"], gr["D"], gr["page"]), dt, c)
+        for dt in (bf16, fp32) for c in ((1, 200, 800), (4, 40, 992))]
+    for label, (Hq, Hkv, D, page), dtype, (B, S, st0) in runs:
         start = [st0] * B
         bt = chunk_table(B, S, st0, page, P, 4)
         npages = bt.shape[1]
         splits = choose_splits(B, S, Hq, Hkv, npages * page, sms)
         q, kp, vp, btd, std = inputs(B, Hq, Hkv, D, page, npages, P, S,
-                                     torch.bfloat16, start, bt)
+                                     dtype, start, bt)
+        tol_p = (MAIN_SHAPE_PREFILL_BF16_TOL if dtype == bf16
+                 else {"atol": 2e-5, "rtol": 2e-5})
         got = flash_prefill_paged(q, kp, vp, btd, std)
         want = ref_paged_prefill(q, kp, vp, btd, std)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rel = ((got.float() - want.float()).norm()
                / want.float().norm()).item()
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **MAIN_SHAPE_PREFILL_BF16_TOL)
+        torch.testing.assert_close(got.float(), want.float(), **tol_p)
         ms = cuda_ms(lambda: flash_prefill_paged(q, kp, vp, btd, std))
         plain = cuda_ms(lambda: ref_paged_prefill(q, kp, vp, btd, std))
         # yardstick: K/V gathered into dense (B, Hkv, T, D) beforehand (not
@@ -615,17 +700,19 @@ def phase_prefill_kernel(card):
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
         bound, by, nbytes, flops = prefill_bound_ms(start, S, Hq, Hkv, D,
-                                                    page, npages, 2)
-        log(f"[flash_prefill_paged] main shape B={B} S={S} start "
-            f"{start[0]} Hq={Hq} Hkv={Hkv} D={D} page={page} npages="
-            f"{npages} bf16, {splits} key part(s) on {sms} SMs: max|err| "
-            f"{err:.3e}, relative norm {rel:.3e} "
-            f"(tol {MAIN_SHAPE_PREFILL_BF16_TOL}); kernel {ms:.4f} ms, plain "
+                                                    page, npages,
+                                                    q.element_size())
+        log(f"[flash_prefill_paged] {label} shape B={B} S={S} start "
+            f"{start[0]} Hq={Hq} Hkv={Hkv} (group {Hq // Hkv}) D={D} "
+            f"page={page} npages={npages} "
+            f"{str(dtype).removeprefix('torch.')}, {splits} key part(s) on "
+            f"{sms} SMs: max|err| {err:.3e}, relative norm {rel:.3e} "
+            f"(tol {tol_p}); kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, sdpa on pre-gathered dense K/V (gather "
             f"excluded) {lib_ms:.4f} ms, bound {bound:.4f} ms by {by} "
             f"({nbytes} B, {flops} flop; {flops / ms / 1e9:.2f} TFLOP/s, "
             f"{bound / ms:.3f} of the bound) on {card}")
-        if start[0] == 800:             # the heaviest context chunk
+        if label == "main" and start[0] == 800:   # the heaviest chunk
             perf = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=bound, bound_by=by, library_ms=lib_ms)
         del q, kp, vp, kd, vd, qd, mask, lib
@@ -654,19 +741,27 @@ FLASH_CASES = [
     (1, 2, 1, 32, 32, 256, True, 0, 0.0),
     (2, 10, 1, 1000, 1000, 256, True, 0, 0.0),  # MQA group 10, S=1000
 ]
-# name, B, Hq, Hkv, S, T, D, dtype, window, softcap, query scale: the full
-# widths the kernel API runs at. Llama-3.1-8B (configs/llama31_8b.py) at the
-# main path's 1000-token shared context and at 8192; Gemma-2-27B
-# (src/repro/configs/gemma2_27b.py) at 8192 with its 4096-token window and
-# softcap 50, its queries scaled by 8 (scores of std ~8) so that the cap
-# bends the largest scores (tests/test_torch_kernels.py::FLASH_TOL_SHAPES
-# shows that skipping it then fails the tolerance); Llama at 1000 in fp32.
-FLASH_MAIN = [
-    ("a", 1, 32, 8, 1000, 1000, 128, "bfloat16", 0, 0.0, 1.0),
-    ("b", 1, 32, 8, 8192, 8192, 128, "bfloat16", 0, 0.0, 1.0),
-    ("c", 1, 32, 16, 8192, 8192, 128, "bfloat16", 4096, 50.0, 8.0),
-    ("d", 1, 32, 8, 1000, 1000, 128, "float32", 0, 0.0, 1.0),
-]
+
+
+def flash_main() -> list:
+    """name, B, Hq, Hkv, S, T, D, dtype, window, softcap, query scale: the
+    full widths the kernel API runs at, read from the configs. Llama-3.1-8B
+    (configs/llama31_8b.py) at the main path's 1000-token shared context
+    and at 8192; Gemma-2-27B (configs/gemma2_27b.py) at 8192 with its
+    4096-token window and softcap 50, its queries scaled by 8 (scores of
+    std ~8) so that the cap bends the largest scores
+    (tests/test_torch_kernels.py::FLASH_TOL_SHAPES shows that skipping it
+    then fails the tolerance); Llama at 1000 in fp32."""
+    from repro_torch.configs.base import get_config
+    ll, gm = get_config("llama31-8b"), get_config("gemma2-27b")
+    lh = (ll.n_heads, ll.n_kv_heads)
+    return [
+        ("a", 1, *lh, 1000, 1000, ll.head_dim, "bfloat16", 0, 0.0, 1.0),
+        ("b", 1, *lh, 8192, 8192, ll.head_dim, "bfloat16", 0, 0.0, 1.0),
+        ("c", 1, gm.n_heads, gm.n_kv_heads, 8192, 8192, gm.head_dim,
+         "bfloat16", gm.sliding_window, gm.attn_softcap, 8.0),
+        ("d", 1, *lh, 1000, 1000, ll.head_dim, "float32", 0, 0.0, 1.0),
+    ]
 
 
 def visible_pairs(S, T, causal, window) -> int:
@@ -738,7 +833,7 @@ def phase_flash_kernel(card):
                 f"{int(blind.sum())} rows with no visible key, all 0")
 
     perf = None
-    for name, B, Hq, Hkv, S, T, D, dt, window, cap, qs in FLASH_MAIN:
+    for name, B, Hq, Hkv, S, T, D, dt, window, cap, qs in flash_main():
         dtype = getattr(torch, dt)
         kw = dict(window=window, softcap=cap)
         q = randn((B, S, Hq, D), dtype, qs)            # the model's layout
@@ -1349,7 +1444,7 @@ def phase_device_times(card, lora):
     """Device time (``device_ms``) of the tensor-core kernels at the main
     shapes: ``paged_decode`` at both DECODE_SHAPES and ``flash_prefill_paged``
     at every MAIN_CHUNKS forward, each beside SDPA on pre-gathered dense
-    K/V, dense ``flash_prefill`` at FLASH_MAIN's bf16 shapes. Then the
+    K/V, dense ``flash_prefill`` at ``flash_main()``'s bf16 shapes. Then the
     slice's plain-torch parts: the sampler on logits of phase 8's step
     (what it adds to that step's device time) beside argmax, and one
     decode step's LoRA merge over phase 9's base and adapters (``lora``),
@@ -1362,22 +1457,32 @@ def phase_device_times(card, lora):
     from repro_torch.kernels.paged_decode import paged_decode_attention
     from repro_torch.launch.timing import device_ms
 
+    from repro_torch.launch.main_path import MOE_MODEL
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    for name in DECODE_SHAPES:
-        q, kp, vp, bt, ln = decode_shape_inputs(name, g)
+    gr = config_heads(MOE_MODEL)
+    granite = (gr["Hq"], gr["Hkv"], gr["D"], gr["page"])
+    llama = (32, 8, 128, 16)
+    for label, name, heads in (("", "main", llama), ("", "engine", llama),
+                               ("granite-moe ", "engine", granite)):
+        q, kp, vp, bt, ln = decode_shape_inputs(name, g, heads)
         ms = device_ms(lambda: paged_decode_attention(q, kp, vp, bt, ln))
         kd, vd, mask, qg = decode_sdpa_inputs(q, kp, vp, bt, ln)
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             qg, kd, vd, attn_mask=mask))
-        log(f"[device time] paged_decode {name} shape B={q.shape[0]} "
+        log(f"[device time] paged_decode {label}{name} shape B={q.shape[0]} "
+            f"Hq={heads[0]} Hkv={heads[1]} D={heads[2]} "
             f"npages={bt.shape[1]} bf16: kernel (with its merge) "
             f"{fmt_ms(ms)}, sdpa on pre-gathered dense K/V {fmt_ms(lib)} "
             f"(torch.profiler, mean of 20 calls) on {card}")
         del q, kp, vp, kd, vd
-    Hq, Hkv, D, page, P = 32, 8, 128, 16, 2049
-    G = Hq // Hkv
-    for B, S, st0 in MAIN_CHUNKS:
+    P = 2049
+    for label, (Hq, Hkv, D, page), (B, S, st0) in (
+            [("", llama, c) for c in MAIN_CHUNKS]
+            + [("granite-moe ", granite, c)
+               for c in ((1, 200, 800), (4, 40, 992))]):
+        G = Hq // Hkv
         bt = torch.tensor(chunk_table(B, S, st0, page, P, 4),
                           dtype=torch.int32, device=dev)
         T = bt.shape[1] * page
@@ -1396,11 +1501,12 @@ def phase_device_times(card, lora):
                 <= qpos[:, :, None])[:, None]
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
-        log(f"[device time] flash_prefill_paged B={B} S={S} start {st0} "
-            f"bf16: kernel {fmt_ms(ms)}, sdpa on pre-gathered dense K/V "
+        log(f"[device time] flash_prefill_paged {label}B={B} S={S} start "
+            f"{st0} Hq={Hq} Hkv={Hkv} D={D} bf16: kernel {fmt_ms(ms)}, sdpa "
+            f"on pre-gathered dense K/V "
             f"{fmt_ms(lib)} (torch.profiler, mean of 20 calls) on {card}")
         del q, kp, vp, kd, vd, qd, mask
-    for name, B, Hq, Hkv, S, T, D, dt, window, cap, qs in FLASH_MAIN:
+    for name, B, Hq, Hkv, S, T, D, dt, window, cap, qs in flash_main():
         if dt != "bfloat16":
             continue
         q = (torch.randn((B, S, Hq, D), generator=g, device=dev)
@@ -1813,6 +1919,379 @@ def phase_lora_identity(card, n_layers: int):
 
 
 # ======================================================================
+# phase 12: MoE on the paged main path at full width and depth
+
+
+class DropProbe:
+    """Records the ``aux`` that ``forward`` returns to every base prefill
+    (eager and chunked) while open, as device scalars (no sync): the
+    ``forward`` that ``core.prefillshare`` calls is wrapped, and restored by
+    ``close``. ``n_moe`` MoE layers share the summed ``dropped_frac``."""
+
+    def __init__(self, n_moe: int):
+        import repro_torch.core.prefillshare as ps
+        self.mod, self.orig, self.n_moe = ps, ps.forward, n_moe
+        self.calls = []
+
+        def probe(cfg, params, tokens, **kw):
+            out, cache, aux = self.orig(cfg, params, tokens, **kw)
+            self.calls.append((tuple(tokens.shape),
+                               aux["dropped_frac"].detach()))
+            return out, cache, aux
+        ps.forward = probe
+
+    def close(self) -> dict:
+        """Per prefill forward shape (B, S): the dropped fraction, mean over
+        the MoE layers and the forwards of that shape, and how many
+        forwards had it."""
+        self.mod.forward = self.orig
+        by = {}
+        for shape, frac in self.calls:
+            by.setdefault(shape, []).append(float(frac) / self.n_moe)
+        return {f"B={b} S={n}": (sum(v) / len(v), len(v))
+                for (b, n), v in by.items()}
+
+
+#: the fp32 card == CPU check's traffic (phases 12 and 13), small enough
+#: for the CPU at full width: a context of FP32_PROMPT tokens, then two
+#: turns, each a FP32_TAIL-token tail and FP32_GEN greedy tokens per model
+FP32_PROMPT, FP32_TAIL, FP32_GEN = 300, 8, 6
+
+
+def paged_small_turns(eng, cfg):
+    """The fp32 check's traffic on a paged engine: one shared context, two
+    turns of one request per model. Returns the tokens."""
+    import numpy as np
+
+    from repro_torch.launch.main_path import tokens
+    from repro_torch.serving import SamplingParams
+    rng = np.random.default_rng(1)
+    out = []
+    with eng.shared_context(tokens(cfg, rng, FP32_PROMPT)) as ctx:
+        for _ in range(2):
+            reqs = [ctx.generate(m, tokens(cfg, rng, FP32_TAIL),
+                                 SamplingParams(max_tokens=FP32_GEN))
+                    for m in ("m0", "m1")]
+            eng.run()
+            out += [list(r.tokens) for r in reqs]
+    return out
+
+
+def card_and_cpu(model, n_layers):
+    """fp32 weights at full width, depth ``n_layers``, built on the card
+    (two decoders stacked, row 1 also the base) and copied to the CPU:
+    ``{device: (cfg, base, {"m0", "m1"})}``."""
+    import torch
+
+    from repro_torch.core.lora import unstack_params
+    from repro_torch.launch.main_path import build_weights
+    from repro_torch.params import tree_map
+    cfg, base, stacked = build_weights(model, n_layers, None, "float32")
+    del base                                  # row 1 serves as the base
+    out = {}
+    for dev, st in (("cuda", stacked),
+                    ("cpu", tree_map(lambda x: x.cpu(), stacked))):
+        m0, m1 = unstack_params(st, 2)
+        out[dev] = (cfg, m1, {"m0": m0, "m1": m1})
+    torch.cuda.synchronize()
+    return out
+
+
+def fp32_logits(card, tag, both):
+    """The base model's last logits over the fp32 check's context, card
+    against CPU, within 1e-3 (fp32 at full width; TF32 is off), so that the
+    token checks do not rest on greedy tokens alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.main_path import tokens
+    from repro_torch.models import forward, init_cache
+    cfg = both["cpu"][0]
+    toks = tokens(cfg, np.random.default_rng(1), FP32_PROMPT)
+    got = {}
+    for dev, (_, base, _) in both.items():
+        d = base["embed"].device      # a prefill into a fresh dense cache
+        got[dev], _, _ = forward(cfg, base, torch.tensor([toks]).to(d),
+                                 cache=init_cache(cfg, 1, FP32_PROMPT, d))
+    err = (got["cuda"].cpu() - got["cpu"]).abs().max().item()
+    torch.testing.assert_close(got["cuda"].cpu(), got["cpu"], atol=1e-3,
+                               rtol=1e-3)
+    log(f"[{tag}] base model's last logits over {FP32_PROMPT} tokens, card "
+        f"vs CPU: max|err| {err:.3e} (tol 1e-3, logits std "
+        f"{got['cpu'].std().item():.3f}) on {card}")
+
+
+def moe_fp32(card, n_layers: int):
+    """granite-moe-3b-a800m at full width, ``n_layers`` deep, fp32: the
+    card's greedy tokens equal the CPU's, eager and chunked."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import (CHUNKED, MOE_MODEL, NUM_PAGES,
+                                              PAGE_SIZE)
+    from repro_torch.serving import LocalDisaggEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    both = card_and_cpu(MOE_MODEL, n_layers)
+    fp32_logits(card, "moe fp32", both)
+    for mode, kw in (("eager", {}), ("chunked", CHUNKED)):
+        got = {}
+        for dev, (cfg, base, decs) in both.items():
+            eng = LocalDisaggEngine(cfg, base, decs, device=dev,
+                                    num_pages=NUM_PAGES // 8,
+                                    page_size=PAGE_SIZE, **kw)
+            got[dev] = paged_small_turns(eng, cfg)
+            del eng
+        assert got["cuda"] == got["cpu"], (mode, got)
+        n = sum(map(len, got["cuda"]))
+        log(f"[moe fp32] {MOE_MODEL} {n_layers} layers fp32 {mode}: card "
+            f"greedy tokens == CPU greedy tokens, all {n} "
+            f"({len(set(t for r in got['cuda'] for t in r))} distinct) on "
+            f"{card}")
+    del both
+
+
+def phase_moe(card, n_layers: int | None):
+    """granite-moe-3b-a800m (40 experts top-8, a query group of 3 at
+    head_dim 64) on the paged main path at full width: phase 4's traffic
+    eager, then phase 5's chunked over the same weights on a fresh pool,
+    then ``moe_fp32``. Launch counters are zeroed just before each path and
+    read just after; it returns the eager path's."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.main_path import (CHUNKED, MOE_MODEL,
+                                              build_engine, rebuild_engine,
+                                              resident_bytes)
+    from repro_torch.params import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    cfg, eng = build_engine(n_layers, model=MOE_MODEL)
+    torch.cuda.synchronize()
+    full = get_config(MOE_MODEL)
+    nparam = sum(x.numel() for x in tree_leaves(eng.base_params))
+    log(f"[moe] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"(group {cfg.n_heads // cfg.n_kv_heads}) x {cfg.head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {nparam} parameters a model; base + "
+        f"2 decoders + 2048x16 pool ready in {time.perf_counter() - t:.2f} s")
+    free0 = eng.block_pool.free_count
+    probe = DropProbe(cfg.n_layers)  # every layer is MoE
+    launches, reqs, turns, _, _ = serve_turns(eng, cfg, card, "moe")
+    drops = probe.close()
+    s = eng.stats()
+    log(f"[moe] stats {json.dumps(s)}")
+    assert s["prefill_tokens_reused"] > 0, s
+    assert launches["paged_write"] > 0, launches
+    assert launches["flash_prefill_paged"] == 0, launches   # eager prefill
+    assert launches["paged_decode"] == cfg.n_layers * s["decode_dispatches"] \
+        > 0, (launches, s)
+    assert eng.block_pool.free_count == free0
+    eng.block_pool.check_invariants()
+    check_memory(eng, mem0, card, "moe")
+    report_metrics(eng, card, "moe")
+    log(f"[moe] prefill dropped_frac, mean over layers, by forward shape "
+        f"(expert capacity from S): {drops}")
+    e_tokens = [list(o.tokens) for o in reqs]
+    del reqs
+    old, eng = eng, rebuild_engine(eng, **CHUNKED)
+    del old                                    # frees the eager pool
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() - resident_bytes(eng)
+    probe = DropProbe(cfg.n_layers)  # every layer is MoE
+    c_launches, c_reqs, _, _, _ = serve_turns(eng, cfg, card, "moe chunked")
+    drops = probe.close()
+    s = eng.stats()
+    assert c_launches["flash_prefill_paged"] > 0, c_launches
+    assert c_launches["paged_write"] == 0, c_launches
+    assert c_launches["paged_decode"] == \
+        cfg.n_layers * s["decode_dispatches"] > 0, (c_launches, s)
+    assert eng.block_pool.free_count == free0
+    check_memory(eng, mem0, card, "moe chunked")
+    report_metrics(eng, card, "moe chunked")
+    log(f"[moe chunked] prefill dropped_frac by chunk forward shape: "
+        f"{drops}")
+    same = sum(a == b for c, e in zip(c_reqs, e_tokens)
+               for a, b in zip(c.tokens, e))
+    log(f"[moe chunked] greedy tokens equal to the eager run's: {same} of "
+        f"{sum(map(len, e_tokens))} (not asserted: expert capacity depends "
+        f"on each forward's S); distinct tokens "
+        f"{len(set(t for r in e_tokens for t in r))}")
+    del eng, c_reqs
+    moe_fp32(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
+    return launches
+
+
+# ======================================================================
+# phase 13: the dense fallback at full width
+
+
+def dense_turns(eng, cfg, prompt_n, tail_n, gen, sampled=False):
+    """The dense fallback's traffic on one session: a context of
+    ``prompt_n`` tokens, then two turns, each appending a ``tail_n``-token
+    tail and then the answer per model (the dense session cache is
+    append-only), ``gen`` greedy tokens; then, if ``sampled``, one seeded
+    sampled request on the session and one in a one-shot session. Launch
+    counters are zeroed just before and read just after. Returns
+    (tokens, launches, requests)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.main_path import tokens
+    from repro_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(2)
+    ctx = tokens(cfg, rng, prompt_n)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    reqs = []
+    for _ in range(2):
+        for m in ("m0", "m1"):
+            ctx = ctx + tokens(cfg, rng, tail_n)
+            reqs.append(eng.generate(m, ctx, SamplingParams(max_tokens=gen),
+                                     session=0))
+            ctx = ctx + list(reqs[-1].tokens)
+    if sampled:
+        sp = SamplingParams(max_tokens=gen, seed=SAMPLED_SEEDS["m0"],
+                            **SAMPLED)
+        ctx = ctx + tokens(cfg, rng, tail_n)
+        reqs.append(eng.generate("m1", ctx, sp, session=0))
+        reqs.append(eng.generate("m0", ctx, sp))        # one-shot session
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    for r in reqs:
+        assert r.finished and len(r.tokens) == gen, r
+        assert all(0 <= t < cfg.vocab_size for t in r.tokens), r
+    return [list(r.tokens) for r in reqs], launches, reqs
+
+
+def dense_fp32(card, name, n_layers: int):
+    """``name`` at full width, ``n_layers`` deep, fp32, on the dense
+    fallback: the card's greedy tokens equal the CPU's."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import DENSE_CAPACITY
+    from repro_torch.serving import LocalDisaggEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = {}
+    both = card_and_cpu(name, n_layers)
+    fp32_logits(card, f"dense fp32 {name}", both)
+    for dev, (cfg, base, decs) in both.items():
+        eng = LocalDisaggEngine(cfg, base, decs, device=dev,
+                                capacity=DENSE_CAPACITY)
+        got[dev], _, _ = dense_turns(eng, cfg, FP32_PROMPT, FP32_TAIL,
+                                     FP32_GEN)
+        del eng, base, decs
+    del both
+    assert got["cuda"] == got["cpu"], (name, got)
+    log(f"[dense fp32] {name} {n_layers} layers fp32: card greedy tokens == "
+        f"CPU greedy tokens, all {sum(map(len, got['cuda']))} "
+        f"({len(set(t for r in got['cuda'] for t in r))} distinct) on "
+        f"{card}")
+
+
+#: phase 13's fp32 depth per arch: one whole layer group
+DENSE_FP32_LAYERS = {"mamba2-780m": 2, "recurrentgemma-2b": 3,
+                     "seamless-m4t-medium": 2, "gemma2-27b": 2}
+
+
+def phase_dense(card, n_layers: int | None):
+    """Each dense-fallback arch at full width (``main_path.DENSE_ARCHS``;
+    gemma2-27b 4 layers deep), a base and two decoders: a shared
+    1000-token context (shorter than every window) and two turns of one
+    request per model, 32 greedy tokens each, then a seeded sampled request
+    on the session and one in a one-shot session; then the same arch in
+    fp32 at 2-3 layers, card against CPU. Each arch's weights are freed
+    before the next."""
+    import gc
+
+    import torch
+
+    from repro_torch.kvcache.handoff import transfer_cache
+    from repro_torch.launch.main_path import (DENSE_ARCHS, DENSE_CAPACITY,
+                                              PROMPT_TOKENS, TAIL_TOKENS,
+                                              build_engine, resident_bytes)
+    from repro_torch.params import tree_leaves
+    from repro_torch.serving import SamplingParams
+
+    for name, depth in DENSE_ARCHS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        if n_layers is not None:
+            depth = min(depth or n_layers, n_layers)
+        cfg, eng = build_engine(depth, model=name, capacity=DENSE_CAPACITY)
+        torch.cuda.synchronize()
+        # serving's peak: init's fp32 transients are freed by now
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        held = resident_bytes(eng)
+        nparam = sum(x.numel() for x in tree_leaves(eng.base_params))
+        assert not eng.paged and eng.decode_plane is None
+        log(f"[dense] {name} ({cfg.arch_type}): {cfg.n_layers} layers "
+            f"(pattern {cfg.layer_pattern}, encoder {cfg.encoder_layers}), "
+            f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, window "
+            f"{cfg.sliding_window}, {cfg.dtype}, {nparam} parameters a "
+            f"model; base + 2 decoders ({held} B) ready in "
+            f"{time.perf_counter() - t:.2f} s")
+        t0 = time.perf_counter()
+        toks, launches, reqs = dense_turns(eng, cfg, PROMPT_TOKENS,
+                                           TAIL_TOKENS, 32, sampled=True)
+        wall = time.perf_counter() - t0
+        s = eng.stats()
+        assert s["prefill_tokens_reused"] > 0, s
+        assert all(n == 0 for n in launches.values()), launches
+        w = eng.prefill_workers[0]
+        # the B=1 decode loop alone, timed over a copy of the session cache
+        sc = w.sessions[0]
+        t1 = time.perf_counter()
+        loop, _ = eng.decoders["m0"].generate(
+            transfer_cache(sc.cache), sc.n_tokens, 2,
+            SamplingParams(max_tokens=32))
+        torch.cuda.synchronize()
+        per_tok = (time.perf_counter() - t1) / len(loop)
+        assert w.mgr.pool.active_count > 0          # the session holds pages
+        eng.end_session(0)
+        assert w.mgr.pool.active_count == 0, w.mgr.pool.active_count
+        assert not w.sessions
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[dense] {name}: max_memory_allocated while serving {peak} B; "
+            f"weights {held} B; allocated before {mem0} B on {card}")
+        assert peak <= mem0 + PEAK_SLACK_BYTES, (peak, mem0)
+        # a dense request is synchronous and streams its tokens when its
+        # loop ends (as the reference's): TTFT is the whole request, and
+        # the per-token decode wall is the loop's own
+        ttft = [r.ttft for r in reqs]
+        log(f"[dense] {name}: {len(reqs)} requests, "
+            f"{sum(map(len, toks))} tokens in {wall:.3f} s; TTFT (the whole "
+            f"synchronous request) {percentiles(ttft)}; B=1 decode loop "
+            f"{per_tok * 1e3:.3f} ms a token; prefill tokens computed "
+            f"{s['prefill_tokens_computed']}, reused "
+            f"{s['prefill_tokens_reused']}; handoff bytes "
+            f"{s['handoff_bytes']}; {len(set(t for r in toks for t in r))} "
+            f"distinct tokens; session pages released on {card}")
+        del eng, reqs, w, sc          # the worker's stats hold the engine
+        dense_fp32(card, name, DENSE_FP32_LAYERS[name])
+
+
+# ======================================================================
 # phase 11: priority preemption at full width (run after phase 5)
 
 
@@ -2153,6 +2632,8 @@ def main() -> int:
     del eager
     phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
     phase_lora_identity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
+    phase_moe(card, n_layers)
+    phase_dense(card, n_layers)
     phase_device_times(card, lora)
 
     # each kernel with its launches on the path that runs it: the eager

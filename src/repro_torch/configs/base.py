@@ -234,7 +234,11 @@ ASSIGNED = [
 
 
 def _load_all():
-    # the port registers only the configs its slices serve so far
     import importlib
-    for m in ("llama31_8b",):
+    mods = [
+        "granite_moe_3b_a800m", "gemma2_27b", "seamless_m4t_medium", "chatglm3_6b",
+        "recurrentgemma_2b", "granite_8b", "internlm2_1_8b", "grok_1_314b",
+        "internvl2_76b", "mamba2_780m", "llama31_8b", "qwen3",
+    ]
+    for m in mods:
         importlib.import_module(f"repro_torch.configs.{m}")

@@ -1,0 +1,14 @@
+"""internlm2-1.8b [dense] — GQA.
+
+[arXiv:2403.17297]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="internlm2-1.8b",
+    arch_type="dense",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab_size=92544,
+    rope_theta=1000000.0,
+    source="arXiv:2403.17297",
+))

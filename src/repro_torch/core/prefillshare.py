@@ -4,9 +4,12 @@ cache-compatibility schema.
 Port of the serving half of ``repro.core.prefillshare``: one frozen base
 model prefills the shared prompt into the paged pool (whole, or in chunks
 that attend straight from the pages); task-specific decode models read that
-KV with zero copy. The schema names which base produced a
-cache, so a decoder trained against another base is refused at handoff.
-Cache-conditioned fine-tuning arrives with the training slice.
+KV with zero copy. Archs whose sequence state is not paged KV (SSD and
+RG-LRU states, window caches, enc-dec cross caches) prefill into a dense
+cache instead (``base_prefill``), which the decode model receives as a
+copy. The schema names which base produced a cache, so a decoder trained
+against another base is refused at handoff. Cache-conditioned fine-tuning
+arrives with the training slice.
 """
 from __future__ import annotations
 
@@ -17,25 +20,33 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import forward, init_cache
+from repro_torch.models import encode, forward, init_cache
 from repro_torch.params import tree_leaves
 
 
 @torch.no_grad()
 def base_prefill(cfg: ModelConfig, base_params, tokens, *, cache_len: int,
-                 pos=None, cache=None):
+                 pos=None, cache=None, prefix_embeds=None, enc_embeds=None):
     """Run the frozen base prefill module; returns (last_logits, C_base).
 
     Supports PARTIAL prefill: pass an existing ``cache`` + ``pos`` to extend
     it with newly appended tokens only (paper §3.3 step 1). The cache is
-    updated in place."""
+    updated in place. ``prefix_embeds`` feed a mixed- or embeds-input
+    model; ``enc_embeds`` an enc-dec model's encoder, whose output fills
+    the cross cache (``enc_len`` rows)."""
     B = tokens.shape[0]
     device = tokens.device
+    enc_out = None
+    if cfg.is_encdec and enc_embeds is not None:
+        enc_out = encode(cfg, base_params, enc_embeds)
     if cache is None:
-        cache = init_cache(cfg, B, cache_len, device=device)
+        enc_len = enc_embeds.shape[1] if enc_embeds is not None else 0
+        cache = init_cache(cfg, B, cache_len, device=device, enc_len=enc_len)
     if pos is None:
         pos = torch.zeros((B,), dtype=torch.int32, device=device)
-    return forward(cfg, base_params, tokens, cache=cache, pos=pos)
+    out, cache, _ = forward(cfg, base_params, tokens, cache=cache, pos=pos,
+                            prefix_embeds=prefix_embeds, enc_out=enc_out)
+    return out, cache
 
 
 @torch.no_grad()

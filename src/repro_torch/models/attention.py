@@ -1,4 +1,5 @@
-"""Attention: GQA with RoPE variants, softcaps, dense and paged caches.
+"""Attention: GQA with RoPE variants, sliding windows, softcaps, dense and
+paged caches, and the enc-dec cross-attention block.
 
 Port of ``repro.models.attention``. Two dense execution paths share one mask
 semantics (positions are explicit: ``q_pos`` (B, Sq), ``k_pos`` (B, Tk),
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ATTN, LOCAL_ATTN
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
 from repro_torch.models.layers import rmsnorm
@@ -174,16 +176,69 @@ def _paged_apply(p, q, k, v, cache, pos, cfg):
 # Attention block: projections + rope + cache plumbing
 
 
+def attn_init(ini, cfg, *, cross: bool = False, layers: int = 0):
+    """The reference's ``attn_init`` tree from the seeded initializer
+    ``ini`` (``models.model._Init``); a cross-attention block has no
+    qk-norm."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": ini.dense((d, hq * hd), layers=layers),
+         "wk": ini.dense((d, hkv * hd), layers=layers),
+         "wv": ini.dense((d, hkv * hd), layers=layers),
+         "wo": ini.dense((hq * hd, d), layers=layers)}
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = ini.zeros((hd,), layers=layers)
+        p["k_norm"] = ini.zeros((hd,), layers=layers)
+    return p
+
+
+def init_attn_cache(cfg, kind, batch, cache_len, dtype, device, lead=()):
+    """Dense KV cache of one layer, with a FLATTENED (Hkv * D) feature dim:
+    ``{"k", "v": (batch, t, Hkv * D), "kpos": (batch, t)}``, ``kpos = -1``
+    for an unwritten slot. A sliding-window layer keeps ``t = min(cache_len,
+    window)`` rows."""
+    t = cache_len
+    if kind == LOCAL_ATTN and cfg.sliding_window:
+        t = min(cache_len, cfg.sliding_window)
+    shape = lead + (batch, t, cfg.n_kv_heads * cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kpos": torch.full(lead + (batch, t), -1, dtype=torch.int32,
+                               device=device)}
+
+
 def _update_global(cache, k, v, q_pos):
     """Write (B, S, f) rows at positions ``q_pos = pos + arange(S)`` into the
-    dense cache, in place (the reference's functional
-    dynamic_update_slice; the rows must fit the cache)."""
+    dense cache, in place. As the reference's ``dynamic_update_slice``, a
+    write that would run past the cache's end is moved back to end there
+    (its start is clamped to ``T - S``); ``kpos`` records the true
+    positions."""
     B, S = q_pos.shape
-    rows = q_pos.long()
+    T = cache["k"].shape[1]
+    start = torch.clamp(q_pos[:, :1].long(), 0, T - S)
+    rows = start + torch.arange(S, device=q_pos.device)
     bidx = torch.arange(B, device=rows.device)[:, None].expand(B, S)
     cache["k"].index_put_((bidx, rows), k)
     cache["v"].index_put_((bidx, rows), v)
     cache["kpos"].index_put_((bidx, rows), q_pos)
+    return cache
+
+
+def _update_window(cache, k, v, q_pos):
+    """A sliding-window cache keeps the LAST ``t`` keys, in place. As in the
+    reference, a chunk of ``s >= t`` tokens leaves only its own last ``t``
+    keys, and the layer then attends over this cache alone, so the chunk's
+    early queries lose keys inside their window (a reference behaviour the
+    port keeps)."""
+    t = cache["k"].shape[1]
+    s = k.shape[1]
+    if s >= t:
+        new = {"k": k[:, -t:], "v": v[:, -t:], "kpos": q_pos[:, -t:]}
+    else:
+        new = {"k": torch.cat([cache["k"][:, s:], k], dim=1),
+               "v": torch.cat([cache["v"][:, s:], v], dim=1),
+               "kpos": torch.cat([cache["kpos"][:, s:], q_pos], dim=1)}
+    for key in ("k", "v", "kpos"):
+        cache[key].copy_(new[key])
     return cache
 
 
@@ -203,12 +258,46 @@ def project_qkv(p, x, cfg, q_pos):
     return q, k, v
 
 
-def attn_apply(p, x, cfg, *, cache=None, pos=None):
-    """One causal global-attention layer. x: (B, S, D); pos: (B,) starting
-    absolute position of x's first token; cache: dense or paged cache dict,
-    or None. Returns (out, cache); caches are updated in place."""
+def _cross_apply(p, q, cfg, cache, enc_out):
+    """Cross-attention over the encoder output: prefill (``enc_out`` given)
+    computes the encoder K/V and writes them into the cross cache, decode
+    (``enc_out=None``) reads them back. Every query sees every key (``q_pos``
+    is int32's max). An empty cross cache (an enc-dec model served on
+    tokens alone) gives zero attention outputs, as in the reference."""
+    B, S = q.shape[:2]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if enc_out is not None:
+        kf, vf = enc_out @ p["wk"], enc_out @ p["wv"]
+        if cache is not None:
+            cache["k"].copy_(kf)
+            cache["v"].copy_(vf)
+    else:
+        kf, vf = cache["k"], cache["v"]
+    k = kf.reshape(B, -1, hkv, hd)
+    v = vf.reshape(B, -1, hkv, hd)
+    tk = k.shape[1]
+    q_pos = torch.full((B, S), torch.iinfo(torch.int32).max,
+                       dtype=torch.int32, device=q.device)
+    k_pos = torch.arange(tk, dtype=torch.int32,
+                         device=q.device)[None].expand(B, tk)
+    o = attention(q, k, v, q_pos, k_pos)
+    return o.reshape(B, S, hq * hd) @ p["wo"], cache
+
+
+def attn_apply(p, x, cfg, kind=ATTN, *, cache=None, pos=None, enc_out=None,
+               cross: bool = False, causal: bool = True):
+    """One attention layer. x: (B, S, D); pos: (B,) starting absolute
+    position of x's first token; cache: dense or paged cache dict, or None
+    (self-attention over x alone; ``causal=False`` lets every query see
+    every key, the encoder's case). ``kind=LOCAL_ATTN`` attends within
+    ``cfg.sliding_window``; ``cross=True`` is the decoder's block over the
+    encoder output. Returns (out, cache); caches are updated in place."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.sliding_window if kind == LOCAL_ATTN else 0
+    if cross:
+        q = (x @ p["wq"]).reshape(B, S, hq, hd)
+        return _cross_apply(p, q, cfg, cache, enc_out)
     if pos is None:
         pos = torch.zeros((B,), dtype=torch.int32, device=x.device)
     q_pos = pos[:, None] + torch.arange(S, dtype=torch.int32,
@@ -216,15 +305,23 @@ def attn_apply(p, x, cfg, *, cache=None, pos=None):
     q, k, v = project_qkv(p, x, cfg, q_pos)
 
     if cache is not None and "k_pages" in cache:
+        if kind == LOCAL_ATTN:
+            raise NotImplementedError("paged cache requires global attention")
         return _paged_apply(p, q, k, v, cache, pos, cfg)
 
     if cache is None:
-        o = attention(q, k, v, q_pos, q_pos, softcap=cfg.attn_softcap)
+        mask_qpos = q_pos if causal else torch.full_like(
+            q_pos, torch.iinfo(torch.int32).max)
+        o = attention(q, k, v, mask_qpos, q_pos, window=window,
+                      softcap=cfg.attn_softcap)
     else:
-        cache = _update_global(cache, k.reshape(B, S, hkv * hd),
-                               v.reshape(B, S, hkv * hd), q_pos)
+        kf, vf = k.reshape(B, S, hkv * hd), v.reshape(B, S, hkv * hd)
+        if kind == LOCAL_ATTN and cfg.sliding_window:
+            cache = _update_window(cache, kf, vf, q_pos)
+        else:
+            cache = _update_global(cache, kf, vf, q_pos)
         t = cache["k"].shape[1]
         o = attention(q, cache["k"].reshape(B, t, hkv, hd),
                       cache["v"].reshape(B, t, hkv, hd), q_pos, cache["kpos"],
-                      softcap=cfg.attn_softcap)
+                      window=window, softcap=cfg.attn_softcap)
     return o.reshape(B, S, hq * hd) @ p["wo"], cache

@@ -1,28 +1,39 @@
-"""Decoder stack for attention-only configs: init, caches, forward.
+"""Composable model: one stack covering dense / MoE / SSM / hybrid /
+enc-dec / mixed-input configs: init, caches, forward.
 
-Port of ``repro.models.model`` for the paged serving path. Layers are
-repetitions of ``cfg.layer_pattern`` ("groups"): every full group's
-parameters and caches stay stacked on a leading ``n_full`` axis, exactly as
-in the reference, whose ``lax.scan`` over that axis becomes a Python loop
-here; a remainder "tail" of layers is stored and run one by one.
+Port of ``repro.models.model``. Layers are repetitions of
+``cfg.layer_pattern`` ("groups"): every full group's parameters and caches
+stay stacked on a leading ``n_full`` axis, exactly as in the reference,
+whose ``lax.scan`` over that axis becomes a Python loop here; a remainder
+"tail" of layers (recurrentgemma's 26 = 8 * 3 + 2) is stored and run one by
+one. A layer is global attention (``ATTN``), sliding-window attention
+(``LOCAL_ATTN``), an RG-LRU block or an SSD block, followed (except SSD) by
+a gated MLP or a mixture of experts; an enc-dec decoder adds a
+cross-attention block over the encoder output (``encode``).
 
 ``forward(cfg, params, tokens, cache=..., pos=...)`` covers the plain
-forward (cache=None), full and partial prefill into a dense cache, and the
-single-model paged decode step (S=1 over a paged cache). ``decode_stacked``
-is the fused plane's step: M decoders' weights stacked on a leading model
-axis advance an (M, Bmax) grid of sequences, one ``paged_decode`` launch per
-layer over the flattened M * Bmax batch.
+forward (cache=None), full and partial prefill into a dense cache, dense
+decode (S=1), and the single-model paged step over a paged cache (global
+attention only). ``decode_stacked`` is the fused plane's step: M decoders'
+weights stacked on a leading model axis advance an (M, Bmax) grid of
+sequences, one ``paged_decode`` launch per layer over the flattened
+M * Bmax batch. Caches are updated in place.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (embed_lookup, mlp_apply, rmsnorm,
                                        unembed)
+
+_KINDS = (ATTN, LOCAL_ATTN, RGLRU, SSD)
 
 
 def _group_structure(cfg: ModelConfig):
@@ -33,11 +44,18 @@ def _group_structure(cfg: ModelConfig):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if any(k != ATTN for k in cfg.layer_kinds()) or cfg.is_moe \
-            or cfg.is_encdec or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: only global-attention token decoders are ported; "
-            f"the dense fallback for other archs is not ported yet")
+    """The reference builds every layer kind it knows and refuses any
+    other (``ValueError(kind)``)."""
+    for kind in cfg.layer_pattern:
+        if kind not in _KINDS:
+            raise ValueError(kind)
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """A paged cache holds global-attention KV only (the reference's
+    ``attn_apply`` refuses a paged sliding-window layer)."""
+    if any(k != ATTN for k in cfg.layer_pattern):
+        raise NotImplementedError("paged cache requires global attention")
 
 
 # ======================================================================
@@ -47,25 +65,30 @@ def _check_supported(cfg: ModelConfig) -> None:
 class _Init:
     """Seeded truncated-normal init on the device, one generator per model.
 
-    Same tree keys and shapes as ``repro.models.init_params`` (torch cannot
-    reproduce ``jax.random``'s numbers; parity tests carry the reference's
-    weights across with ``repro_torch.params.params_from_numpy``). With
-    several seeds every leaf gets a leading model axis, filled model by model
-    (and layer by layer) so no full-size fp32 temporary is ever made."""
+    Same tree keys, shapes and leaf dtypes as ``repro.models.init_params``
+    (a few leaves stay fp32 under a bf16 config: the MoE router, SSD's
+    ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``/``lam``). torch
+    cannot reproduce ``jax.random``'s numbers; parity tests carry the
+    reference's weights across with ``repro_torch.params.params_from_numpy``.
+    With several seeds every leaf gets a leading model axis, filled model by
+    model (and layer by layer) so no full-size fp32 temporary is ever
+    made."""
 
     def __init__(self, seeds, device, dtype, stacked: bool):
         self.gens = [torch.Generator(device=device).manual_seed(int(s))
                      for s in seeds]
         self.device, self.dtype, self.stacked = device, dtype, stacked
 
-    def _fill(self, shape, fn):
+    def _fill(self, shape, fn, layers: int = 0, dtype=None):
         lead = (len(self.gens),) if self.stacked else ()
-        out = torch.empty(lead + shape, dtype=self.dtype, device=self.device)
+        shape = ((layers,) if layers else ()) + tuple(shape)
+        out = torch.empty(lead + shape, dtype=dtype or self.dtype,
+                          device=self.device)
         for m, g in enumerate(self.gens):
             fn(out[m] if self.stacked else out, g)
         return out
 
-    def dense(self, shape, scale=None, layers: int = 0):
+    def dense(self, shape, scale=None, layers: int = 0, dtype=None):
         """Truncated normal in [-3, 3] times 1/sqrt(fan_in) (or ``scale``);
         ``layers`` > 0 prepends a stacked layer axis."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
@@ -78,44 +101,65 @@ class _Init:
                 torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -3.0, 3.0,
                                             generator=g)
                 sub.copy_(tmp * std)
-        return self._fill(((layers,) if layers else ()) + tuple(shape), fn)
+        return self._fill(shape, fn, layers, dtype)
 
-    def zeros(self, shape, layers: int = 0):
-        return self._fill(((layers,) if layers else ()) + tuple(shape),
-                          lambda t, g: t.zero_())
+    def zeros(self, shape, layers: int = 0, dtype=None):
+        return self._fill(shape, lambda t, g: t.zero_(), layers, dtype)
+
+    def full(self, shape, value: float, layers: int = 0, dtype=None):
+        return self._fill(shape, lambda t, g: t.fill_(value), layers, dtype)
+
+    def const(self, values, layers: int = 0, dtype=None):
+        """Every layer (and model) holds ``values`` (a 1-D tensor)."""
+        v = torch.as_tensor(values)
+        return self._fill(tuple(v.shape),
+                          lambda t, g: t.copy_(v.to(t.device, t.dtype)),
+                          layers, dtype)
 
 
-def _layer_init(ini: _Init, cfg: ModelConfig, layers: int = 0):
-    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = {"wq": ini.dense((d, hq * hd), layers=layers),
-            "wk": ini.dense((d, hkv * hd), layers=layers),
-            "wv": ini.dense((d, hkv * hd), layers=layers),
-            "wo": ini.dense((hq * hd, d), layers=layers)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ini.zeros((hd,), layers=layers)
-        attn["k_norm"] = ini.zeros((hd,), layers=layers)
-    p = {"norm1": ini.zeros((d,), layers=layers), "attn": attn}
-    if cfg.d_ff > 0:
+def _layer_init(ini: _Init, cfg: ModelConfig, kind: str = ATTN, *,
+                cross: bool = False, layers: int = 0):
+    d = cfg.d_model
+    p = {"norm1": ini.zeros((d,), layers=layers)}
+    if kind in (ATTN, LOCAL_ATTN):
+        p["attn"] = attn_mod.attn_init(ini, cfg, layers=layers)
+    elif kind == RGLRU:
+        p["rglru"] = rglru_mod.rglru_init(ini, cfg, layers=layers)
+    elif kind == SSD:
+        p["ssd"] = ssd_mod.ssd_init(ini, cfg, layers=layers)
+    if cross:
+        p["norm_x"] = ini.zeros((d,), layers=layers)
+        p["cross"] = attn_mod.attn_init(ini, cfg, cross=True, layers=layers)
+    if cfg.d_ff > 0 and kind != SSD:
         p["norm2"] = ini.zeros((d,), layers=layers)
-        p["mlp"] = {"wi": ini.dense((d, cfg.d_ff), layers=layers),
-                    "wu": ini.dense((d, cfg.d_ff), layers=layers),
-                    "wo": ini.dense((cfg.d_ff, d), layers=layers)}
+        if cfg.is_moe and kind in (ATTN, LOCAL_ATTN):
+            p["moe"] = moe_mod.moe_init(ini, cfg, layers=layers)
+        else:
+            p["mlp"] = {"wi": ini.dense((d, cfg.d_ff), layers=layers),
+                        "wu": ini.dense((d, cfg.d_ff), layers=layers),
+                        "wo": ini.dense((cfg.d_ff, d), layers=layers)}
     return p
 
 
 def _init_tree(cfg: ModelConfig, ini: _Init):
     _check_supported(cfg)
     pat, n_full, tail = _group_structure(cfg)
+    cross = cfg.is_encdec
     params = {
         "embed": ini.dense((cfg.vocab_size, cfg.d_model), scale=0.02),
         "final_norm": ini.zeros((cfg.d_model,)),
-        "groups": {f"pos{i}": _layer_init(ini, cfg, layers=n_full)
-                   for i in range(len(pat))} if n_full else {},
-        "tail": [_layer_init(ini, cfg) for _ in tail],
+        "groups": {f"pos{i}": _layer_init(ini, cfg, kind, cross=cross,
+                                          layers=n_full)
+                   for i, kind in enumerate(pat)} if n_full else {},
+        "tail": [_layer_init(ini, cfg, kind, cross=cross) for kind in tail],
     }
     if not cfg.tie_embeddings:
         params["unembed"] = ini.dense((cfg.vocab_size, cfg.d_model),
                                       scale=0.02)
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "groups": _layer_init(ini, cfg, ATTN, layers=cfg.encoder_layers),
+            "norm": ini.zeros((cfg.d_model,))}
     return params
 
 
@@ -136,27 +180,39 @@ def init_stacked_params(cfg: ModelConfig, seeds, device=None):
     return _init_tree(cfg, _Init(seeds, dev, torch_dtype(cfg.dtype), True))
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Dense working cache: stacked groups plus tail layers, each layer
-    ``{"k", "v": (batch, cache_len, Hkv * D), "kpos": (batch, cache_len)}``
-    with ``kpos = -1`` for unwritten slots."""
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None, *,
+               enc_len: int = 0, dtype=None):
+    """Dense working cache: stacked groups plus tail layers. An attention
+    layer holds ``{"k", "v": (batch, t, Hkv * D), "kpos": (batch, t)}``
+    (``kpos = -1`` for unwritten slots; ``t = cache_len``, or the window
+    for a sliding-window layer), an RG-LRU layer ``{"h", "conv"}``, an SSD
+    layer ``{"ssm", "conv"}`` (the recurrent states fp32); an enc-dec
+    decoder's layers add ``"cross": {"k", "v": (batch, enc_len, Hkv * D)}``."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
+    dtype = dtype or torch_dtype(cfg.dtype)
     pat, n_full, tail = _group_structure(cfg)
-    f = cfg.n_kv_heads * cfg.head_dim
 
-    def layer(lead):
-        return {"k": torch.zeros(lead + (batch, cache_len, f), dtype=dtype,
+    def layer(kind, lead):
+        if kind in (ATTN, LOCAL_ATTN):
+            c = attn_mod.init_attn_cache(cfg, kind, batch, cache_len, dtype,
+                                         dev, lead)
+        elif kind == RGLRU:
+            c = rglru_mod.init_rglru_cache(cfg, batch, dtype, dev, lead)
+        else:
+            c = ssd_mod.init_ssd_cache(cfg, batch, dtype, dev, lead)
+        if cfg.is_encdec:
+            f = cfg.n_kv_heads * cfg.head_dim
+            c["cross"] = {
+                "k": torch.zeros(lead + (batch, enc_len, f), dtype=dtype,
                                  device=dev),
-                "v": torch.zeros(lead + (batch, cache_len, f), dtype=dtype,
-                                 device=dev),
-                "kpos": torch.full(lead + (batch, cache_len), -1,
-                                   dtype=torch.int32, device=dev)}
+                "v": torch.zeros(lead + (batch, enc_len, f), dtype=dtype,
+                                 device=dev)}
+        return c
 
-    return {"groups": {f"pos{i}": layer((n_full,)) for i in range(len(pat))}
-            if n_full else {},
-            "tail": [layer(()) for _ in tail]}
+    return {"groups": {f"pos{i}": layer(kind, (n_full,))
+                       for i, kind in enumerate(pat)} if n_full else {},
+            "tail": [layer(kind, ()) for kind in tail]}
 
 
 # ======================================================================
@@ -177,21 +233,66 @@ def _layer_slice(tree, layer: int, axis: int):
 
 
 def _cache_slice(cache, layer: int):
-    """Layer ``layer`` of a stacked group cache: dense leaves are stacked, a
-    paged cache shares one block table across layers."""
+    """Layer ``layer`` of a stacked group cache (views, so in-place updates
+    reach the stack): dense leaves are stacked, a paged cache shares one
+    block table across layers."""
     if "k_pages" in cache:
         return {"k_pages": cache["k_pages"][layer], "v_pages": cache["v_pages"][layer],
                 "block_tables": cache["block_tables"]}
-    return {k: v[layer] for k, v in cache.items()}
+    return _layer_slice(cache, layer, 0)
 
 
-def _apply_layer(lp, x, cfg, cache, pos):
+def _store(cache, new) -> None:
+    """Write a recurrent block's new state into its cache, in place."""
+    for key, val in new.items():
+        cache[key].copy_(val)
+
+
+def _apply_layer(lp, x, cfg, kind, cache, pos, enc_out=None):
+    """One layer (its cache updated in place). Returns (x, MoE aux or {})."""
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    out, _ = attn_mod.attn_apply(lp["attn"], h, cfg, cache=cache, pos=pos)
+    aux = {}
+    if kind in (ATTN, LOCAL_ATTN):
+        out, _ = attn_mod.attn_apply(lp["attn"], h, cfg, kind, cache=cache,
+                                     pos=pos)
+    elif kind == RGLRU:
+        out, new = rglru_mod.rglru_apply(lp["rglru"], h, cfg, cache=cache)
+        if cache is not None:
+            _store(cache, new)
+    elif kind == SSD:
+        out, new = ssd_mod.ssd_apply(lp["ssd"], h, cfg, cache=cache)
+        if cache is not None:
+            _store(cache, new)
+    else:
+        raise ValueError(kind)
     x = x + out
+    if "cross" in lp:
+        # prefill (enc_out given) writes the cross cache, decode reads it
+        hx = rmsnorm(x, lp["norm_x"], cfg.norm_eps)
+        out, _ = attn_mod.attn_apply(
+            lp["cross"], hx, cfg, ATTN, enc_out=enc_out, cross=True,
+            cache=cache.get("cross") if cache is not None else None)
+        x = x + out
     if "norm2" in lp:
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
-    return x
+        h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        if "moe" in lp:
+            out2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg)
+        else:
+            out2 = mlp_apply(lp["mlp"], h2)
+        x = x + out2
+    return x, aux
+
+
+def _aux_zero(device):
+    return {"lb_loss": torch.zeros((), dtype=torch.float32, device=device),
+            "dropped_frac": torch.zeros((), dtype=torch.float32,
+                                        device=device)}
+
+
+def _kinds(cfg):
+    """Layer kinds in ``_layers``' execution order."""
+    pat, n_full, tail = _group_structure(cfg)
+    return list(pat) * n_full + list(tail)
 
 
 def _layers(cfg, params, cache, axis: int = 0):
@@ -217,26 +318,59 @@ def _embed(cfg, table, index):
         cfg.d_model ** 0.5, dtype=table.dtype, device=table.device)
 
 
+def encode(cfg: ModelConfig, params, embeds):
+    """Bidirectional encoder over precomputed frame embeddings (the audio
+    frontend is a stub): (B, T, D) -> (B, T, D)."""
+    x = embeds.to(torch_dtype(cfg.dtype))
+    enc = params["encoder"]
+    for layer in range(cfg.encoder_layers):
+        lp = _layer_slice(enc["groups"], layer, 0)
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        # bidirectional: all positions valid for all queries
+        out, _ = attn_mod.attn_apply(lp["attn"], h, cfg, ATTN, causal=False)
+        x = x + out
+        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+    return rmsnorm(x, enc["norm"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
-            logits: str = "last"):
+            prefix_embeds=None, enc_out=None, logits: str = "last"):
     """Run the decoder stack. tokens: (B, S) int; pos: (B,) int32 absolute
-    position of tokens[:, 0] (None -> zeros). Returns (output, cache):
-    last-token logits (B, V), all logits (B, S, V) or hidden states
-    (B, S, D) for ``logits`` in {"last", "all", "hidden"}. A cache (dense or
-    paged) is updated in place and returned."""
+    position of the first input row (None -> zeros). ``prefix_embeds``
+    (B, P, D): a mixed-input model prepends them to the token embeddings,
+    an embeds-input decoder-only model runs on them alone; ``enc_out``: the
+    encoder output an enc-dec decoder cross-attends to (prefill; decode
+    reads the cross cache). Returns (output, cache, aux): last-row logits
+    (B, V), all logits (B, S, V) or hidden states (B, S, D) for ``logits``
+    in {"last", "all", "hidden"}; aux holds the MoE layers' summed
+    ``lb_loss`` and ``dropped_frac`` (zeros without MoE layers). A cache (dense or paged) is
+    updated in place and returned."""
     _check_supported(cfg)
-    x = _embed(cfg, params["embed"], tokens)
+    dtype = torch_dtype(cfg.dtype)
+    if cfg.input_mode == "mixed" and prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dtype),
+                       _embed(cfg, params["embed"], tokens)], dim=1)
+    elif cfg.input_mode == "embeds" and prefix_embeds is not None \
+            and not cfg.is_encdec:
+        x = prefix_embeds.to(dtype)
+    else:
+        x = _embed(cfg, params["embed"], tokens)
     if pos is None:
         pos = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    for lp, lc in _layers(cfg, params, cache):
-        x = _apply_layer(lp, x, cfg, lc, pos)
+    aux = _aux_zero(x.device)
+    for (lp, lc), kind in zip(_layers(cfg, params, cache), _kinds(cfg)):
+        x, ax = _apply_layer(lp, x, cfg, kind, lc, pos, enc_out)
+        for k in ax:
+            aux[k] = aux[k] + ax[k]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     table = params.get("unembed", params["embed"])
     if logits == "hidden":
-        return x, cache
-    if logits == "all":
-        return unembed(x, table, cfg.final_softcap), cache
-    return unembed(x[:, -1], table, cfg.final_softcap), cache
+        out = x
+    elif logits == "all":
+        out = unembed(x, table, cfg.final_softcap)
+    else:
+        out = unembed(x[:, -1], table, cfg.final_softcap)
+    return out, cache, aux
 
 
 def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
@@ -257,9 +391,10 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
     m * Bmax + b; only those rows write the pool. Projections and MLPs are
     batched matrix products over the model axis; attention is one
     ``paged_decode`` launch per layer over all M * Bmax rows, each real row
-    writing its K/V straight into the shared pool. Returns (M, Bmax, V)
-    fp32 logits."""
-    _check_supported(cfg)
+    writing its K/V straight into the shared pool. An MoE layer routes each
+    (model, row) token alone (S = 1, so its capacity is 1 and nothing is
+    dropped). Returns (M, Bmax, V) fp32 logits."""
+    _check_paged(cfg)
     M, Bmax = tokens.shape
     if lanes is None:
         top = stacked
@@ -286,7 +421,12 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
             softcap=cfg.attn_softcap, rows=rows)
         x = x + o.reshape(M, Bmax, hq * hd) @ ap["wo"]
         if "norm2" in lp:
-            x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+            h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+            if "moe" in lp:      # (M, Bmax, 1, d): one routing row per token
+                x = x + moe_mod.moe_apply(lp["moe"], h2[:, :, None],
+                                          cfg)[0][:, :, 0]
+            else:
+                x = x + mlp_apply(lp["mlp"], h2)
         del lp, ap          # before the next layer merges its own lanes
     x = rmsnorm(x, top["final_norm"], cfg.norm_eps)
     table = top.get("unembed", top["embed"])

@@ -48,7 +48,7 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _to_tensor(a, device, dtype):
+def _to_tensor(a, device, dtype=None):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes: no torch.from_numpy
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -59,12 +59,15 @@ def _to_tensor(a, device, dtype):
     return t.to(device)
 
 
-def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
+def params_from_numpy(tree, device=None):
     """The reference's parameter tree, as numpy arrays, -> the port's tree of
-    tensors on ``device`` (the card by default). Keys, shapes and the stacked
-    leading axis are kept; ``dtype`` optionally casts floating leaves."""
+    tensors on ``device`` (the card by default). Keys, shapes, the stacked
+    leading axis and EVERY leaf's own dtype are kept: under a bf16 config
+    the reference holds a few leaves in fp32 (the MoE router, SSD's
+    ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``/``lam``), and a
+    blanket cast would change their numerics."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _to_tensor(a, dev, dtype), tree)
+    return tree_map(lambda a: _to_tensor(a, dev), tree)
 
 
 def adapters_from_numpy(tree, device=None, dtype: torch.dtype | None = None):

@@ -41,6 +41,16 @@ pool and the decode admission reserve at step boundaries
 and refcount against the engine's holders after every step
 (``kvcache/sanitize.py``).
 
+The dense fallback (``paged=False``, the default for any config the paged
+pool cannot hold: SSD and RG-LRU states, sliding-window caches, enc-dec
+cross caches, mixed input) keeps one dense cache per session: the prefill
+worker extends it by the appended tokens (append-only), the decode model
+gets a copy of it (``transfer_cache``; ``HandoffChannel.plan`` counts its
+bytes) and runs the B=1 loop of ``DecodeWorker.generate`` under the same
+``SamplingParams``. A dense request is synchronous and streams its tokens
+when its loop ends, as in the reference. MoE configs stay on the paged
+plane.
+
 Decode models are full fine-tunes (``DecodeModelSpec(full=...)``) or LoRA
 adapters over the engine's base weights (``DecodeModelSpec(lora=...)``).
 ``metrics=True`` (the default) publishes latency histograms, gauges and
@@ -49,8 +59,7 @@ per-request traces into one ``MetricsRegistry`` (``engine.metrics()``,
 counters either way.
 
 ``LocalDisaggEngine(..., device=None)`` runs on the card; pass
-``device="cpu"`` for the plain PyTorch versions of the kernels. Options not
-ported yet raise ``NotImplementedError`` naming the feature.
+``device="cpu"`` for the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -62,10 +71,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.prefillshare import base_prefill_paged, cache_schema
+from repro_torch.core.prefillshare import (base_prefill, base_prefill_paged,
+                                           cache_schema)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kvcache.blocks import BlockPool, PoolExhausted
-from repro_torch.kvcache.handoff import HandoffChannel
+from repro_torch.kvcache.handoff import HandoffChannel, transfer_cache
 from repro_torch.kvcache.manager import CacheManager, CacheStats
 from repro_torch.kvcache.paged import PagedKVPool
 from repro_torch.kvcache.radix import NullPrefixIndex, PrefixIndex
@@ -85,8 +95,19 @@ from repro_torch.serving.metrics import (SPAN_FIRST_TOKEN, SPAN_HANDOFF,
 from repro_torch.serving.preempt import PreemptConfig, SwapManager
 from repro_torch.serving.registry import ModelRegistry, as_spec
 from repro_torch.serving.router import PrefillRouter
+from repro_torch.serving.sampling import sample_step
 from repro_torch.serving.scheduler import (ChunkedScheduler, Request,
                                            SchedulerConfig)
+
+
+@dataclass
+class SessionCache:
+    """Dense-fallback session state (SSM / hybrid / windowed / enc-dec /
+    mixed-input archs): one incrementally extended dense cache."""
+    cache: object
+    n_tokens: int
+    capacity: int
+    alloc: object = None          # held until end_session (residency == refs)
 
 
 @dataclass
@@ -235,7 +256,10 @@ class EngineStats:
         if eng is None:
             return d
         agg = CacheStats.merge(w.mgr.stats for w in eng.prefill_workers)
-        pool = eng.block_pool
+        # the dense fallback's workers each keep a private accounting pool
+        pools = ([eng.block_pool] if eng.block_pool is not None
+                 else [w.mgr.pool for w in eng.prefill_workers])
+        idx = eng.prefix_index
         d.update(prefix_hit_tokens=agg.hit_tokens,
                  prefix_total_tokens=agg.total_tokens,
                  prefix_lookups=agg.lookups,
@@ -243,12 +267,14 @@ class EngineStats:
                  relay_hit_tokens=agg.relay_hit_tokens,
                  relay_hit_ratio=(agg.relay_hit_tokens / agg.total_tokens
                                   if agg.total_tokens else 0.0),
-                 evictions=pool.stats.evictions,
-                 pages_active=pool.active_count,
-                 pages_cached=pool.cached_count,
-                 relay_nodes=eng.prefix_index.relay_nodes,
-                 prefix_nodes=len(eng.prefix_index),
-                 pages_swapped=pool.swapped_count,
+                 evictions=sum(p.stats.evictions for p in pools),
+                 pages_active=sum(p.active_count for p in pools),
+                 pages_cached=sum(p.cached_count for p in pools),
+                 relay_nodes=idx.relay_nodes if idx is not None else 0,
+                 prefix_nodes=(len(idx) if idx is not None
+                               else sum(len(w.mgr.index)
+                                        for w in eng.prefill_workers)),
+                 pages_swapped=sum(p.swapped_count for p in pools),
                  swapped_seqs=(len(eng.swap.records)
                                if eng.swap is not None else 0))
         return d
@@ -326,6 +352,84 @@ class PrefillWorker:
             self.mgr.release(sc.alloc)     # pages -> CACHED (LRU, reusable)
 
 
+class DensePrefillWorker:
+    """Dense fallback: one incrementally extended cache per session (archs
+    whose sequence state is not paged KV: recurrent states, window caches,
+    cross caches). The page-level CacheManager still runs for accounting,
+    over a private pool, and its allocation is HELD for the session so
+    residency matches the refcounts."""
+
+    def __init__(self, wid: int, cfg: ModelConfig, base_params, *, device,
+                 capacity: int = 512, mgr_blocks: int = 4096,
+                 block_size: int = 16, stats: EngineStats | None = None,
+                 index=None):
+        self.wid = wid                # index in the pool (trace spans)
+        self.cfg = cfg
+        self.base_params = base_params
+        self.device = device
+        self.capacity = capacity
+        self.sessions: dict[int, SessionCache] = {}
+        self.mgr = CacheManager(cfg, mgr_blocks, block_size, index=index)
+        self.stats = stats if stats is not None else EngineStats()
+        self.backlog_s = 0.0
+        self.last_decay_t = time.monotonic()
+        self.ewma = ThroughputEWMA()
+        self.pending_chunk_tokens = 0
+
+    def prefill(self, sid: int, tokens) -> SessionCache:
+        """Prefill ``tokens`` into the session's cache: the whole context
+        for a new session, else only the appended tail (the context is
+        append-only). The cache is ``max(capacity, n)`` rows long; as in the
+        reference, a write past its end lands on its last rows."""
+        tokens = [int(t) for t in tokens]
+        n = len(tokens)
+        sc = self.sessions.get(sid)
+        alloc = self.mgr.acquire(tokens)              # block-level metrics
+        self.mgr.commit(tokens, alloc)
+        t0 = time.perf_counter()
+        try:
+            if sc is None:
+                _, cache = base_prefill(
+                    self.cfg, self.base_params,
+                    torch.tensor([tokens], dtype=torch.int32,
+                                 device=self.device),
+                    cache_len=max(self.capacity, n))
+                synchronize(self.device)
+                self.ewma.observe(n, time.perf_counter() - t0)
+                new = SessionCache(cache, n, max(self.capacity, n), alloc)
+                self.stats.prefill_tokens_computed += n
+            else:
+                if n <= sc.n_tokens:
+                    raise ValueError("context is append-only")
+                fresh = tokens[sc.n_tokens:]
+                _, cache = base_prefill(
+                    self.cfg, self.base_params,
+                    torch.tensor([fresh], dtype=torch.int32,
+                                 device=self.device),
+                    cache_len=sc.capacity, cache=sc.cache,
+                    pos=torch.tensor([sc.n_tokens], dtype=torch.int32,
+                                     device=self.device))
+                synchronize(self.device)
+                self.ewma.observe(len(fresh), time.perf_counter() - t0)
+                self.stats.prefill_tokens_computed += len(fresh)
+                self.stats.prefill_tokens_reused += sc.n_tokens
+                self.mgr.release(sc.alloc)
+                new = SessionCache(cache, n, sc.capacity, alloc)
+        except BaseException:
+            # already committed above, so the pages are published: release
+            # (-> CACHED) rather than abandon, as end_session does
+            self.mgr.release(alloc)
+            raise
+        self.sessions[sid] = new
+        self.backlog_s += n * self.ewma.s_per_token
+        return new
+
+    def end_session(self, sid: int):
+        sc = self.sessions.pop(sid, None)
+        if sc is not None and sc.alloc is not None:
+            self.mgr.release(sc.alloc)
+
+
 # ======================================================================
 # Decode
 
@@ -371,9 +475,42 @@ class DecodeWorker:
         toks = torch.tensor([s.next_token for s in seqs], dtype=torch.int32)
         pos = torch.tensor([s.pos for s in seqs], dtype=torch.int32).to(dev)
         cache = kvpool.make_decode_cache(torch.from_numpy(bt).to(dev))
-        logits, _ = forward(self.cfg, self.dec_params, toks.to(dev)[:, None],
-                            cache=cache, pos=pos)
+        logits, _, _ = forward(self.cfg, self.dec_params,
+                               toks.to(dev)[:, None], cache=cache, pos=pos)
         return next_tokens(logits, seqs, dev)
+
+    @torch.no_grad()
+    def generate(self, cache, start_pos: int, first_token: int,
+                 params: SamplingParams) -> tuple[np.ndarray, str]:
+        """The dense fallback's B=1 loop over a private copy of the session
+        cache, under the same SamplingParams contract as the paged planes
+        (greedy at temperature 0, else keys folded from (seed, position)).
+        Returns (tokens, finish_reason)."""
+        dev = tree_leaves(cache)[0].device
+        pos = torch.tensor([start_pos], dtype=torch.int32, device=dev)
+        tok = torch.tensor([first_token], dtype=torch.int32, device=dev)
+        samp = (torch.tensor([params.temperature], dtype=torch.float32),
+                torch.tensor([params.top_k], dtype=torch.int32),
+                torch.tensor([params.top_p], dtype=torch.float32),
+                torch.tensor([params.seed or 0], dtype=torch.int32))
+        samp = tuple(x.to(dev) for x in samp)
+        greedy_only = params.temperature <= 0
+        out, reason = [], FINISH_LENGTH
+        for _ in range(params.max_tokens):
+            logits, cache, _ = forward(self.cfg, self.dec_params,
+                                       tok[:, None], cache=cache, pos=pos)
+            if greedy_only:
+                tok = logits.argmax(-1).to(torch.int32)
+            else:
+                tok = sample_step(logits, pos, *samp)
+            t = int(tok[0])
+            out.append(t)
+            pos = pos + 1
+            stop = params.is_stop(t)
+            if stop is not None:
+                reason = stop
+                break
+        return np.asarray(out, np.int32), reason
 
 
 # ======================================================================
@@ -406,21 +543,26 @@ class LocalDisaggEngine:
                  sanitize: bool = False, preempt: bool = False,
                  overcommit: float = 1.0):
         self.device = resolve_device(device)
-        paged_ok = paged is not False and PagedKVPool.supports(cfg)
-        if sanitize and not paged_ok:
+        self.paged = PagedKVPool.supports(cfg) if paged is None else paged
+        if self.paged and not PagedKVPool.supports(cfg):
+            raise ValueError(f"{cfg.name}: arch not eligible for paged plane")
+        if sanitize and not self.paged:
             raise ValueError("sanitize=True requires the paged KV plane "
                              "(the sanitizer checks page refcounts)")
-        if preempt and not paged_ok:
+        if preempt and not self.paged:
             raise ValueError("preempt=True requires the paged KV plane "
                              "(the swap tier moves pool pages)")
+        if autoscale is not None and not self.paged:
+            raise ValueError("autoscale requires the paged KV plane (the "
+                             "dense fallback's per-worker pools cannot be "
+                             "hot-joined)")
         if overcommit != 1.0 and not preempt:
             raise ValueError(
                 "overcommit > 1 oversubscribes the decode admission reserve "
                 "and is only safe with preemption armed; pass preempt=True")
-        if not paged_ok:
-            raise NotImplementedError(
-                f"{cfg.name}: the dense (non-paged) fallback is not ported "
-                f"yet")
+        self.fused = self.paged if fused is None else fused
+        if self.fused and not self.paged:
+            raise ValueError("fused decode requires the paged data plane")
         leaf = tree_leaves(base_params)[0]
         if leaf.device != self.device:
             raise ValueError(f"base_params live on {leaf.device}, the engine "
@@ -443,23 +585,38 @@ class LocalDisaggEngine:
         self.prefix_cache = prefix_cache
         # relay rides on the prefix tree: with prefix_cache=False the Null
         # index adopts nothing, so relay is off by construction
-        self.relay = relay and prefix_cache
-        self.block_pool = BlockPool(num_pages, page_size)
-        self.kvpool = PagedKVPool(cfg, num_pages, page_size,
-                                  device=self.device)
-        if prefix_cache:
-            # ONE engine-global radix tree shared by every worker's manager;
-            # its eviction callback is registered exactly once, here
-            self.prefix_index = PrefixIndex(page_size)
-            self.block_pool.add_evict_callback(self.prefix_index.remove_block)
+        self.relay = relay and self.paged and prefix_cache
+        if self.paged:
+            self.block_pool = BlockPool(num_pages, page_size)
+            self.kvpool = PagedKVPool(cfg, num_pages, page_size,
+                                      device=self.device)
+            if prefix_cache:
+                # ONE engine-global radix tree shared by every worker's
+                # manager; its eviction callback is registered once, here
+                self.prefix_index = PrefixIndex(page_size)
+                self.block_pool.add_evict_callback(
+                    self.prefix_index.remove_block)
+            else:
+                self.prefix_index = NullPrefixIndex(page_size)
+            self.prefill_workers = [
+                PrefillWorker(i, cfg, base_params, self.kvpool,
+                              self.block_pool, self.stats,
+                              index=self.prefix_index)
+                for i in range(n_prefill_workers)]
         else:
-            self.prefix_index = NullPrefixIndex(page_size)
-        self.prefill_workers = [
-            PrefillWorker(i, cfg, base_params, self.kvpool,
-                          self.block_pool, self.stats,
-                          index=self.prefix_index)
-            for i in range(n_prefill_workers)]
-        self.fused = True if fused is None else fused
+            # dense fallback: per-worker private accounting pools, so block
+            # ids are not comparable across workers and the radix tree
+            # stays per manager (prefix_cache=False still disables it)
+            self.block_pool = None
+            self.kvpool = None
+            self.prefix_index = None
+            self.prefill_workers = [
+                DensePrefillWorker(i, cfg, base_params, device=self.device,
+                                   capacity=capacity, block_size=page_size,
+                                   stats=self.stats,
+                                   index=None if prefix_cache
+                                   else NullPrefixIndex(page_size))
+                for i in range(n_prefill_workers)]
         self.scheduler = ChunkedScheduler(
             self, SchedulerConfig(token_budget=token_budget,
                                   chunk_size=chunk_size,
@@ -519,7 +676,7 @@ class LocalDisaggEngine:
             cold_s = []
             for w in self.prefill_workers:
                 sc = w.sessions.get(sid)
-                if sc is not None and sc.tokens == tokens:
+                if sc is not None and getattr(sc, "tokens", None) == tokens:
                     cold = 0
                 else:
                     cold = n - w.mgr.index.match_len(tokens)
@@ -580,16 +737,17 @@ class LocalDisaggEngine:
         reg.gauge("engine_sched_reserve_extra_pages",
                   "autoscaler decode admission reserve (pages)",
                   fn=lambda: self.sched_reserve_extra)
-        reg.gauge("engine_pool_free_pages", "free pool pages",
-                  fn=lambda: self.block_pool.free_count)
-        reg.gauge("engine_pool_active_pages", "refcount-held pool pages",
-                  fn=lambda: self.block_pool.active_count)
-        reg.gauge("engine_pool_cached_pages",
-                  "LRU-cached (evictable) pool pages",
-                  fn=lambda: self.block_pool.cached_count)
-        reg.gauge("engine_pool_swapped_pages",
-                  "pages whose KV lives in the host swap tier",
-                  fn=lambda: self.block_pool.swapped_count)
+        if self.block_pool is not None:
+            reg.gauge("engine_pool_free_pages", "free pool pages",
+                      fn=lambda: self.block_pool.free_count)
+            reg.gauge("engine_pool_active_pages", "refcount-held pool pages",
+                      fn=lambda: self.block_pool.active_count)
+            reg.gauge("engine_pool_cached_pages",
+                      "LRU-cached (evictable) pool pages",
+                      fn=lambda: self.block_pool.cached_count)
+            reg.gauge("engine_pool_swapped_pages",
+                      "pages whose KV lives in the host swap tier",
+                      fn=lambda: self.block_pool.swapped_count)
         reg.gauge("engine_swapped_sequences",
                   "decode sequences parked in the swap tier",
                   fn=lambda: (len(self.swap.records)
@@ -598,11 +756,12 @@ class LocalDisaggEngine:
                   "host memory held by swapped-out KV",
                   fn=lambda: (self.swap.host.total_bytes
                               if self.swap is not None else 0))
-        reg.gauge("engine_prefix_nodes", "radix prefix-index nodes",
-                  fn=lambda: len(self.prefix_index))
-        reg.gauge("engine_relay_nodes",
-                  "radix nodes holding decode-written (relay) KV",
-                  fn=lambda: self.prefix_index.relay_nodes)
+        if self.prefix_index is not None:
+            reg.gauge("engine_prefix_nodes", "radix prefix-index nodes",
+                      fn=lambda: len(self.prefix_index))
+            reg.gauge("engine_relay_nodes",
+                      "radix nodes holding decode-written (relay) KV",
+                      fn=lambda: self.prefix_index.relay_nodes)
 
     def metrics(self) -> dict:
         """The observability surface as dicts: ``{"counters", "gauges",
@@ -625,7 +784,8 @@ class LocalDisaggEngine:
         sched = self.scheduler
         self._h_queue.observe(len(sched.waiting) + len(sched.prefilling))
         pool = self.block_pool
-        self._h_occ.observe(1.0 - pool.free_count / pool.num_blocks)
+        if pool is not None:
+            self._h_occ.observe(1.0 - pool.free_count / pool.num_blocks)
 
     # ------------------------------------------------------------------
     # elastic prefill:decode scaling (serving/autoscale.py)
@@ -882,6 +1042,10 @@ class LocalDisaggEngine:
         rid = self._next_rid
         self._next_rid += 1
         params = self._resolve_seed(params, rid)   # the handle sees the seed
+        if not self.paged:
+            return self._generate_dense(rid, sid, tokens, model_id, params,
+                                        first_token, ephemeral,
+                                        stream_callback)
         out = RequestOutput(self, rid, sid, model_id, params)
         if stream_callback is not None:
             out.add_callback(stream_callback)
@@ -974,6 +1138,8 @@ class LocalDisaggEngine:
         """Make ``tokens`` resident for session ``sid`` (SharedContext
         warm-up). Eager mode prefills synchronously; chunked mode drives the
         scheduler until the prefill-only request completes."""
+        if not self.paged:
+            raise ValueError("shared contexts require the paged data plane")
         tokens = [int(t) for t in tokens]
         if not self.chunked:
             self._pick_worker(sid, tokens).prefill(sid, tokens)
@@ -1108,6 +1274,51 @@ class LocalDisaggEngine:
         else:
             self.block_pool.drop(s.private_blocks)   # generated KV: private
         self._on_request_done(s.rid, s.finish_reason or FINISH_LENGTH)
+
+    # ------------------------------------------------------------------
+    # dense fallback
+    # ------------------------------------------------------------------
+    def _generate_dense(self, rid, sid, tokens, model_id, params,
+                        first_token, ephemeral,
+                        stream_callback=None) -> RequestOutput:
+        """Dense-fallback generate (SSM / hybrid / windowed / enc-dec /
+        mixed-input archs): synchronous, under the same RequestOutput
+        contract (params honoured, tokens streamed to callbacks, finish
+        reason set). Through the engine an enc-dec or mixed-input model runs
+        on tokens alone, as in the reference: no encoder output, an empty
+        cross cache."""
+        out = RequestOutput(self, rid, sid, model_id, params)
+        if stream_callback is not None:
+            out.add_callback(stream_callback)
+        toks, reason = self._invoke_dense(sid, tokens, model_id, params,
+                                          first_token)
+        for t in toks:
+            out._push(int(t))
+        if self._metrics_on and out.ttft is not None:
+            self._h_ttft.observe(out.ttft)
+            for gap in out.inter_token_latencies():
+                self._h_itl.observe(gap)
+        self._done.add(rid)
+        out._mark_finished(reason)
+        if ephemeral:
+            self.end_session(sid)
+        return out
+
+    def _invoke_dense(self, sid, context_tokens, model_id, params,
+                      first_token):
+        """Prefill (or extend) the session's dense cache, hand a copy of it
+        to the decode model (the bytes ``HandoffChannel.plan`` counts) and
+        run its B=1 loop."""
+        self.models.check_serving(model_id)
+        tokens = [int(t) for t in np.asarray(context_tokens)]
+        worker = self._pick_worker(sid, tokens)
+        sc = worker.prefill(sid, tokens)
+        dw = self.decoders[model_id]
+        HandoffChannel.check(self.schema, dw.expected_schema)
+        cache = transfer_cache(sc.cache)               # decode-side copy
+        self.stats.handoffs += 1
+        self.stats.handoff_bytes += self.handoff.plan(sc.n_tokens)
+        return dw.generate(cache, sc.n_tokens, first_token, params)
 
     def end_session(self, sid: int):
         for w in self.prefill_workers:

@@ -10,7 +10,12 @@ chunk shapes, which are held to ``MAIN_SHAPE_BF16_TOL`` and
 ``MAIN_SHAPE_PREFILL_BF16_TOL``, and at the full-width dense shapes
 (Llama-3.1-8B's and Gemma-2-27B's heads), held to
 ``MAIN_SHAPE_FLASH_BF16_TOL``; paged_write is exact. The toy engines run at
-the reference's own head_dim 16 and at 32, eager and chunked.
+the reference's own head_dim 16 and at 32, eager and chunked. The layers of
+the other archs (MoE, SSD, RG-LRU, sliding windows) and every ``ASSIGNED``
+arch's engine at ``reduced()`` width run on the card against the CPU, the
+MoE ones on the paged plane (granite-moe-3b-a800m's heads, a query group
+of 3 at head_dim 64, are also in the kernel cases), the rest on the dense
+fallback.
 """
 import numpy as np
 import pytest
@@ -28,7 +33,7 @@ from repro_torch.kernels.ref import (MAIN_SHAPE_BF16_TOL,
                                      ref_flash_prefill, ref_paged_decode,
                                      ref_paged_prefill, ref_paged_write)
 from repro_torch.models import init_params
-from repro_torch.params import tree_map
+from repro_torch.params import tree_leaves, tree_map
 from repro_torch.serving import LocalDisaggEngine, SamplingParams
 
 pytestmark = pytest.mark.gpu
@@ -40,6 +45,9 @@ ENGINE_DECODE = (4, 32, 8, 128, 16, 128, 2049)
 # chatglm3-6b's heads (src/repro/configs/chatglm3_6b.py: 32 query heads, 2
 # kv heads, so a query group of 16, head_dim 128), page 16, up to 4k tokens
 CHATGLM_DECODE = (4, 32, 2, 128, 16, 256, 1025)
+# granite-moe-3b-a800m's heads (24 query heads over 8 kv heads, a query
+# group of 3, head_dim 64) at the engine's fused decode step
+GRANITE_DECODE = (4, 24, 8, 64, 16, 128, 2049)
 PAGED_CASES = [
     # B, Hq, Hkv, D, page, npages, pool
     (3, 8, 2, 64, 16, 8, 40),
@@ -52,8 +60,9 @@ PAGED_CASES = [
     LLAMA_DECODE,                      # Llama-3.1-8B decode shape
     ENGINE_DECODE,                     # the engine's decode step
     CHATGLM_DECODE,                    # chatglm3-6b's heads
+    GRANITE_DECODE,                    # granite-moe-3b-a800m's heads
 ]
-MAIN_DECODE = (LLAMA_DECODE, ENGINE_DECODE, CHATGLM_DECODE)
+MAIN_DECODE = (LLAMA_DECODE, ENGINE_DECODE, CHATGLM_DECODE, GRANITE_DECODE)
 # B, Hq, Hkv, D, page, npages, pool, S, start (None: random); the chunked
 # main path's chunk forwards, each table as wide as the scheduler buckets it
 # (next power of two of the pages in use): the shared context's 200-token
@@ -68,7 +77,10 @@ LLAMA_CHUNKS = [(1, 32, 8, 128, 16, 16, 2049, 200, 0),
 # chatglm3-6b's heads (group 16) at the same chunk shapes
 CHATGLM_CHUNKS = [(1, 32, 2, 128, 16, 64, 1025, 200, 800),
                   (4, 32, 2, 128, 16, 128, 1025, 40, 992)]
-MAIN_CHUNK_CASES = LLAMA_CHUNKS + CHATGLM_CHUNKS
+# granite-moe-3b-a800m's heads (group 3, head_dim 64) at the same shapes
+GRANITE_CHUNKS = [(1, 24, 8, 64, 16, 64, 2049, 200, 800),
+                  (4, 24, 8, 64, 16, 128, 2049, 40, 992)]
+MAIN_CHUNK_CASES = LLAMA_CHUNKS + CHATGLM_CHUNKS + GRANITE_CHUNKS
 PREFILL_CASES = [
     (2, 4, 2, 64, 8, 4, 16, 5, None),      # tests/test_kernels.py cases
     (1, 8, 1, 32, 16, 3, 8, 16, None),
@@ -210,6 +222,7 @@ def test_paged_decode_counts_one_launch_per_call(card):
     (1, 32, 4, 64, 8, 12),
     (2, 128, 1, 128, 32, 16),
     (32, 1024, 8, 128, 16, 32 * 2049),     # Llama: 32 layers folded
+    (32, 1024, 8, 64, 16, 32 * 2049),      # granite-moe: 32 layers folded
 ], ids=str)
 def test_paged_write_kernel_bitwise(card, case, dtype):
     B, S, H, D, page, P = case
@@ -278,6 +291,7 @@ def test_flash_prefill_paged_kernel_matches_plain(card, case, dtype, softcap):
     (2, 16, 2, 128, 16, 16, 64, 37, None),
     (1, 32, 8, 128, 16, 64, 2049, 200, 800),
     (4, 32, 8, 128, 16, 128, 2049, 40, 992),
+    *GRANITE_CHUNKS,
 ], ids=str)
 def test_flash_prefill_paged_split_matches_unsplit(card, case, softcap,
                                                    splits):
@@ -654,3 +668,122 @@ def test_preempting_toy_engine_on_card_matches_cpu(card, mode):
     want, n_cpu = fleet("cpu", **armed)
     assert got == want == fleet(card)[0]
     assert n_card == n_cpu and n_card["preemptions"] >= 1
+
+
+# ======================================================================
+# every ASSIGNED arch: layers and engines, card against CPU (fp32)
+
+
+def _reduced(name):
+    from repro_torch.configs.base import get_config
+    return get_config(name).reduced(vocab=64)
+
+
+def _scaled(tree, f=16.0):
+    """Output projections scaled by ``f``, in place: with seeded random
+    weights a tied-embedding model otherwise answers with its last input
+    token at every step."""
+    from repro_torch.launch.main_path import scale_outputs
+    scale_outputs(tree, f)
+    return tree
+
+
+def _layer_case(name, block):
+    cfg = _reduced(name)
+    params = init_params(cfg, 0, device="cpu")
+    g = params["groups"]
+    lp = next(v for v in g.values() if block in v)
+    return cfg, tree_map(lambda t: t[0], lp)
+
+
+@pytest.mark.parametrize("name,block", [
+    ("granite-moe-3b-a800m", "moe"), ("mamba2-780m", "ssd"),
+    ("recurrentgemma-2b", "rglru")])
+@pytest.mark.parametrize("S", [1, 37, 128])
+def test_layer_on_card_matches_cpu(card, name, block, S):
+    """``moe_apply`` (capacity from S: drops at 37 and 128 tokens with the
+    config's own capacity factor; within 2e-5), ``ssd_apply`` and
+    ``rglru_apply`` (S = 1 is the decode step, S > 1 the chunked scan;
+    within 1e-4), fp32 on the card against the CPU, from a carried
+    state."""
+    import dataclasses
+
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.rglru import init_rglru_cache, rglru_apply
+    from repro_torch.models.ssd import init_ssd_cache, ssd_apply
+    cfg, lp = _layer_case(name, block)
+    if block == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=1.25)
+    x = torch.randn((2, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(S))
+    outs = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev), lp[block])
+        xd = x.to(dev)
+        if block == "moe":
+            out, aux = moe_apply(p, xd, cfg)
+            outs[dev] = [out, aux["dropped_frac"], aux["lb_loss"]]
+        else:
+            init = init_ssd_cache if block == "ssd" else init_rglru_cache
+            cache = init(cfg, 2, torch.float32, dev)
+            for t in tree_leaves(cache):
+                t.copy_(torch.randn(t.shape,
+                                    generator=torch.Generator().manual_seed(1)
+                                    ).to(dev) * 0.1)
+            fn = ssd_apply if block == "ssd" else rglru_apply
+            out, new = fn(p, xd, cfg, cache=cache)
+            outs[dev] = [out] + [new[k] for k in sorted(new)]
+    # the scans' exps and cumulative sums round differently on the card:
+    # the reference's own SSD tests' 1e-4 (tests/test_models_units.py)
+    tol = 2e-5 if block == "moe" else 1e-4
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(outs[card], outs["cpu"]))
+    print(f"{name} {block} S={S}: max|card - cpu| {err:.3e} (tol {tol})")
+    for a, b in zip(outs[card], outs["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=tol)
+
+
+def _arch_engine_tokens(name, dev, cpu_params, **kw):
+    cfg = _reduced(name)
+    p = {m: tree_map(lambda t: t.to(dev), t) for m, t in cpu_params.items()}
+    eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"], "m1": p["m1"]},
+                            device=dev, num_pages=64, page_size=8,
+                            capacity=128, **kw)
+    rng = np.random.default_rng(0)
+    ctx = [int(t) for t in rng.integers(4, 60, 29)]
+    out = []
+    for m in ("m0", "m1", "m0"):
+        ctx = ctx + [int(t) for t in rng.integers(4, 60, 5)]
+        toks = eng.generate(m, ctx, SamplingParams(max_tokens=6),
+                            session=0).result().tolist()
+        out.append(toks)
+        ctx = ctx + toks
+    return out, eng
+
+
+@pytest.mark.parametrize("name", [
+    "granite-moe-3b-a800m", "grok-1-314b", "mamba2-780m",
+    "recurrentgemma-2b", "gemma2-27b", "seamless-m4t-medium",
+    "internvl2-76b"])
+def test_arch_engine_on_card_matches_cpu(card, name):
+    """Each arch at ``reduced()`` width (vocab 64, fp32) through
+    ``LocalDisaggEngine.generate`` on one growing session: the card's
+    greedy tokens equal the CPU's. MoE archs serve on the paged plane
+    (eager, and chunked through ``flash_prefill_paged``), the others on the
+    dense fallback; a gemma2 context outgrows its 64-token window."""
+    cfg = _reduced(name)
+    cpu = {m: _scaled(init_params(cfg, s, device="cpu"))
+           for m, s in (("base", 0), ("m0", 1), ("m1", 2))}
+    want, eng = _arch_engine_tokens(name, "cpu", cpu)
+    assert eng.paged == cfg.is_moe
+    before = paged_decode_attention.launches
+    got, eng = _arch_engine_tokens(name, card, cpu)
+    assert got == want
+    assert len({t for r in got for t in r}) > 1
+    if cfg.is_moe:
+        assert paged_decode_attention.launches > before
+        kw = dict(chunked=True, chunk_size=7, token_budget=16)
+        before = flash_prefill_paged.launches
+        chunked, _ = _arch_engine_tokens(name, card, cpu, **kw)
+        assert flash_prefill_paged.launches > before
+        assert chunked == _arch_engine_tokens(name, "cpu", cpu, **kw)[0]

@@ -62,4 +62,19 @@ print(" ".join(names))
             "repro_torch.kvcache.sanitize",
             "repro_torch.serving.preempt",
             "repro_torch.serving.costmodel",
-            "repro_torch.serving.autoscale"} <= visited
+            "repro_torch.serving.autoscale",
+            "repro_torch.models.moe",
+            "repro_torch.models.ssd",
+            "repro_torch.models.rglru",
+            "repro_torch.kvcache.handoff",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.mamba2_780m",
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.seamless_m4t_medium",
+            "repro_torch.configs.internvl2_76b",
+            "repro_torch.configs.gemma2_27b",
+            "repro_torch.configs.grok_1_314b",
+            "repro_torch.configs.chatglm3_6b",
+            "repro_torch.configs.granite_8b",
+            "repro_torch.configs.internlm2_1_8b",
+            "repro_torch.configs.qwen3"} <= visited

@@ -63,7 +63,7 @@ def test_forward_logits_match_reference(name):
     jp, tp = _bridge(jcfg)
     toks = _tokens(np.random.default_rng(0), 2, 11)
     want, _, _ = jax_forward(jcfg, jp, jnp.asarray(toks), logits="all")
-    got, _ = forward(tcfg, tp, torch.tensor(toks), logits="all")
+    got, _, _ = forward(tcfg, tp, torch.tensor(toks), logits="all")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
 
@@ -80,9 +80,9 @@ def test_partial_prefill_into_dense_cache_matches_reference(name):
     want, jc, _ = jax_forward(jcfg, jp, jnp.asarray(toks[:, 13:]), cache=jc,
                               pos=jnp.array([13], jnp.int32))
     tc = init_cache(tcfg, 1, 32, device="cpu")
-    _, tc = forward(tcfg, tp, torch.tensor(toks[:, :13]), cache=tc)
-    got, tc = forward(tcfg, tp, torch.tensor(toks[:, 13:]), cache=tc,
-                      pos=torch.tensor([13], dtype=torch.int32))
+    _, tc, _ = forward(tcfg, tp, torch.tensor(toks[:, :13]), cache=tc)
+    got, tc, _ = forward(tcfg, tp, torch.tensor(toks[:, 13:]), cache=tc,
+                         pos=torch.tensor([13], dtype=torch.int32))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
     np.testing.assert_allclose(tc["groups"]["pos0"]["k"].numpy(),
@@ -127,7 +127,7 @@ def test_paged_decode_steps_match_dense_path(name):
     prompt = _tokens(np.random.default_rng(3), 1, 13)
     page, n_steps = 8, 7
     dense = init_cache(tcfg, 1, 32, device="cpu")
-    logits, dense = forward(tcfg, tp, torch.tensor(prompt), cache=dense)
+    logits, dense, _ = forward(tcfg, tp, torch.tensor(prompt), cache=dense)
     pool = PagedKVPool(tcfg, num_pages=8, page_size=page, device="cpu")
     bt = [3, 5, 1, 6]                                  # any private pages
     pool.scatter_from_dense(dense, bt, 0, 2)           # prompt rows 0..15
@@ -136,10 +136,11 @@ def test_paged_decode_steps_match_dense_path(name):
     t_d = t_p = tok
     for i in range(n_steps):
         pos = torch.tensor([13 + i], dtype=torch.int32)
-        ld, dense = forward(tcfg, tp, torch.tensor([[t_d]]), cache=dense,
-                            pos=pos)
+        ld, dense, _ = forward(tcfg, tp, torch.tensor([[t_d]]), cache=dense,
+                               pos=pos)
         cache = pool.make_decode_cache(torch.tensor([bt], dtype=torch.int32))
-        lp, _ = forward(tcfg, tp, torch.tensor([[t_p]]), cache=cache, pos=pos)
+        lp, _, _ = forward(tcfg, tp, torch.tensor([[t_p]]), cache=cache,
+                           pos=pos)
         np.testing.assert_allclose(lp.numpy(), ld.numpy(), atol=TOL, rtol=TOL)
         t_d, t_p = int(ld.argmax(-1)), int(lp.argmax(-1))
         dense_toks.append(t_d)
@@ -172,8 +173,8 @@ def test_decode_stacked_matches_per_model_forward():
         for dst, src in zip(single.layers()[1], ref_pool["v"]):
             dst.copy_(src)
         cache = single.make_decode_cache(torch.tensor(bts[m * 2 + b][None]))
-        want, _ = forward(tcfg, models[m], torch.tensor([[toks[m, b]]]),
-                          cache=cache, pos=torch.tensor([pos[m, b]]))
+        want, _, _ = forward(tcfg, models[m], torch.tensor([[toks[m, b]]]),
+                             cache=cache, pos=torch.tensor([pos[m, b]]))
         np.testing.assert_allclose(got[m, b].numpy(), want[0].numpy(),
                                    atol=TOL, rtol=TOL)
 
@@ -205,6 +206,6 @@ def test_load_npz_reads_reference_checkpoint(tmp_path):
                            device="cpu")
     toks = _tokens(np.random.default_rng(4), 1, 9)
     want, _, _ = jax_forward(jcfg, jp, jnp.asarray(toks))
-    got, _ = forward(tcfg, tp, torch.tensor(toks))
+    got, _, _ = forward(tcfg, tp, torch.tensor(toks))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
