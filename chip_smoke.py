@@ -130,6 +130,31 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      peak memory while serving within the weights + 2 GiB, TTFT, the B=1
      decode loop's wall a token; then 2-3 layers in fp32: the base's
      logits and the greedy tokens, card == CPU.
+  14. training (after phase 13; plain torch, no kernel: no TPU kernel lies
+     on the training path): ``launch/train.py``'s path on internlm2-1.8b
+     at full width and depth (24 layers, d_model 2048, vocab 92544, bf16,
+     seeded random weights), ``TRAIN_STEPS`` pretraining steps, the base's
+     checkpoint, ``TRAIN_STEPS`` cache-conditioned (Eq. 7) steps of a
+     full-weight decoder initialised as the base, its checkpoint and
+     ``evaluate`` at share ratio 1: each step's wall, tokens/s, peak
+     memory and the losses; the losses finite, the base bit-unchanged by
+     fine-tuning, the decoder changed, both checkpoints read back
+     bit-equal;
+  15. one ``train_loss`` step of that base at S=4096, B=1, ``remat=True``
+     (past the reference's flash switch: ``_FlashAttention`` forward twice
+     and backward once a layer, counted): loss + backward and the AdamW
+     update timed, peak memory;
+  16. Llama-3.1-8B at full width and depth (phase 9's base) fine-tuned
+     through ``cache_conditioned_lora_loss`` (rank 16, wq/wv/wo) over phase
+     4's shared 1000-token context, 4 rows of 32-token targets: each
+     step's wall and peak memory; the base bit-unchanged, the adapters
+     changed;
+  17. internlm2-1.8b at full width in fp32, 2 layers: the Eq. 7 loss
+     (share ratio 0.5), every gradient leaf and one AdamW update, card
+     against CPU, then ``_FlashAttention``'s o/dq/dk/dv at the model's
+     heads over 1024 tokens, card against CPU (tolerances in
+     ``phase_train_fp32``). Phases 14-17 run before phase 7, whose
+     profiler would slow them.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -2597,6 +2622,381 @@ def phase_preempt(card, eager):
 
 
 # ======================================================================
+# phases 14-17: training on the card (plain torch: no TPU kernel lies on
+# the training path, so nothing here launches a Hopper kernel)
+
+TRAIN_MODEL = "internlm2-1.8b"      # the reference launcher's default arch
+TRAIN_STEPS = 10                     # pretrain steps, then Eq. 7 steps
+TRAIN_BATCH = 48                     # the launcher's default
+LONG_S = 4096                        # phase 15: one sequence this long
+LORA_TRAIN_STEPS = 3                 # phase 16: Llama-3.1-8B LoRA steps
+LORA_TRAIN_ROWS = 4                  # rows sharing phase 4's context
+TRAIN_FP32_LAYERS = 2                # phase 17's depth
+TRAIN_DEVICE = "cuda"                # phases 14-16's device (17: both)
+
+
+class StepClock:
+    """Wall seconds of every ``Trainer.step`` while installed (each step
+    ends in a synchronise: ``fit`` reads the loss back)."""
+
+    def __init__(self):
+        from repro_torch.training.trainer import Trainer
+        self.cls, self.orig, self.s = Trainer, Trainer.step, []
+
+    def __enter__(self):
+        import torch
+        orig, s = self.orig, self.s
+
+        def timed(tr, *a, **kw):
+            t = time.perf_counter()
+            out = orig(tr, *a, **kw)
+            torch.cuda.synchronize()
+            s.append(time.perf_counter() - t)
+            return out
+        self.cls.step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+
+def steps_line(s) -> str:
+    """Each step's wall in ms, and the mean past the first."""
+    rest = s[1:] or s
+    return (f"{[round(x * 1e3, 2) for x in s]} ms (mean past the first "
+            f"{1e3 * sum(rest) / len(rest):.2f} ms)")
+
+
+def same_tree(a, b) -> bool:
+    import torch
+
+    from repro_torch.params import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_train(card):
+    """Phase 14: ``launch/train.py``'s path on internlm2-1.8b at full width
+    and depth (24 layers, d_model 2048, vocab 92544, bf16, seeded random
+    weights): ``TRAIN_STEPS`` pretraining steps of the base, the
+    checkpoint, ``TRAIN_STEPS`` Eq. 7 steps of a decoder initialised as the
+    base (full weights, fp32 AdamW moments), the decoder's checkpoint and
+    ``evaluate`` on the shared cache. Each step's wall, peak memory and the
+    losses; the losses finite, the base bit-unchanged by fine-tuning (read
+    back from the checkpoint written before it), the decoder changed, and
+    both checkpoints read back bit-equal. Returns the base for phase 15."""
+    import gc
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import train as launch
+    from repro_torch.params import tree_leaves
+    from repro_torch.training import data as D
+    from repro_torch.training.checkpoint import load
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "train_ckpt"
+    args = launch.parser().parse_args([
+        "--arch", TRAIN_MODEL, "--pretrain-steps", str(TRAIN_STEPS),
+        "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+        "--out", str(out / "ckpt"), "--device", TRAIN_DEVICE])
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepClock() as clock:
+        res = launch.run(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, base, dec = res["cfg"], res["base"], res["dec"]
+    nparam = sum(x.numel() for x in tree_leaves(base))
+    pre_s, ft_s = clock.s[:TRAIN_STEPS], clock.s[TRAIN_STEPS:]
+    # the rows' lengths: pretraining's first batch (the task mixture), and
+    # the fine-tuning domain's (every batch alike)
+    b = next(D.batches(0, D.TaskSpec("mix", prompt_len=10, n_symbols=8),
+                       TRAIN_BATCH, 1))
+    pre_n = b.prompt.shape[1] + b.target_in.shape[1]
+    b = next(D.batches(0, D.TaskSpec(args.domain, prompt_len=10,
+                                     n_symbols=8), TRAIN_BATCH, 1))
+    sp, st = b.prompt.shape[1], b.target_in.shape[1]
+    rest_pre, rest_ft = pre_s[1:] or pre_s, ft_s[1:] or ft_s
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, {nparam} "
+        f"parameters; the launcher's path (batch {TRAIN_BATCH}, prompt 10 "
+        f"symbols of 8) in {wall:.2f} s on {card}")
+    log(f"[train] pretrain steps ({TRAIN_BATCH} x {pre_n} tokens at the "
+        f"first) {steps_line(pre_s)}, "
+        f"{TRAIN_BATCH * pre_n * len(rest_pre) / sum(rest_pre):.1f} "
+        f"tokens/s; losses {[round(x, 4) for x in res['pretrain_losses']]}")
+    log(f"[train] cache-conditioned (Eq. 7) steps ({TRAIN_BATCH} x {sp} "
+        f"prompt tokens through the frozen base, {TRAIN_BATCH} x {st} "
+        f"target tokens trained) {steps_line(ft_s)}, "
+        f"{TRAIN_BATCH * st * len(rest_ft) / sum(rest_ft):.1f} target "
+        f"tokens/s; losses {[round(x, 4) for x in res['losses']]}")
+    log(f"[train] shared-cache accuracy (per token, share ratio 1) "
+        f"{res['acc']:.4f}; max_memory_allocated {peak} B (allocated "
+        f"before {mem0} B; one model's weights {2 * nparam} B) on {card}")
+    losses = res["pretrain_losses"] + res["losses"]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert not same_tree(dec, base), "fine-tuning left the decoder as the base"
+    t1 = time.perf_counter()
+    for tree, path in ((base, res["base_path"]), (dec, res["dec_path"])):
+        back = load(path, tree)
+        assert same_tree(back, tree), path
+        del back
+    size = sum(p.stat().st_size for p in out.glob("*.npz"))
+    log(f"[train] both checkpoints ({size} B of .npz) read back bit-equal in "
+        f"{time.perf_counter() - t1:.2f} s; the base read back from its "
+        f"checkpoint (written before fine-tuning) equals the base after it")
+    shutil.rmtree(out)
+    del dec, res
+    return cfg, base
+
+
+def phase_train_long(card, cfg, base):
+    """Phase 15: one ``train_loss`` step of internlm2-1.8b at S=4096, B=1,
+    ``remat=True``: Sq * Tk = 16.8M is past the reference's 8.4M switch,
+    so every layer's attention runs ``_FlashAttention`` (its forward twice,
+    the remat recomputing it, its backward once: counted). Loss and
+    backward, then an AdamW update, each timed (two steps, the first
+    warming up); peak memory."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import train_loss
+    from repro_torch.params import tree_leaves, tree_map
+    from repro_torch.training.optim import AdamW, apply_updates
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    toks, tgt = (torch.tensor(rng.integers(4, cfg.vocab_size, (1, LONG_S)),
+                              dtype=torch.int32, device=TRAIN_DEVICE)
+                 for _ in range(2))
+    mask = torch.ones((1, LONG_S), dtype=torch.float32, device=TRAIN_DEVICE)
+    calls = {"fwd": 0, "bwd": 0}
+    orig = attn_mod._flash, attn_mod._flash_bwd
+
+    def fwd(*a):
+        calls["fwd"] += 1
+        return orig[0](*a)
+
+    def bwd(*a):
+        calls["bwd"] += 1
+        return orig[1](*a)
+
+    opt = AdamW(1e-4, weight_decay=0.01)
+    state = opt.init(base)
+    params = base
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    attn_mod._flash, attn_mod._flash_bwd = fwd, bwd
+    try:
+        times = []
+        for _ in range(2):
+            calls.update(fwd=0, bwd=0)
+            p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            t0 = time.perf_counter()
+            loss, _ = train_loss(cfg, p, toks, tgt, mask, remat=True)
+            loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = tree_map(lambda x: x.grad, p)
+            p = tree_map(torch.Tensor.detach, p)
+            upd, state = opt.update(grads, state, p)
+            params = apply_updates(p, upd)
+            del grads, upd, p
+            torch.cuda.synchronize()
+            times.append((t1 - t0, time.perf_counter() - t1, loss.item()))
+    finally:
+        attn_mod._flash, attn_mod._flash_bwd = orig
+    peak = torch.cuda.max_memory_allocated()
+    assert calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}, calls
+    assert all(math.isfinite(t[2]) for t in times), times
+    assert all(torch.isfinite(x).all() for x in tree_leaves(params))
+    log(f"[train S={LONG_S}] {cfg.name} B=1 remat: _FlashAttention forward "
+        f"{calls['fwd']}x, backward {calls['bwd']}x a step; loss + backward "
+        f"{[round(t[0] * 1e3, 2) for t in times]} ms, AdamW update "
+        f"{[round(t[1] * 1e3, 2) for t in times]} ms, losses "
+        f"{[round(t[2], 4) for t in times]} "
+        f"({LONG_S / times[-1][0]:.1f} tokens/s through loss + backward); "
+        f"max_memory_allocated {peak} B (allocated before {mem0} B) on "
+        f"{card}")
+
+
+def int_sum(tree) -> list:
+    """An exact checksum per leaf (its bits summed as integers)."""
+    import torch
+
+    from repro_torch.params import tree_leaves
+    views = {2: torch.int16, 4: torch.int32}
+    return [int(x.view(views[x.element_size()]).sum(dtype=torch.int64))
+            for x in tree_leaves(tree)]
+
+
+def phase_train_lora(card, lora):
+    """Phase 16: Llama-3.1-8B at full width and depth (phase 9's base, bf16)
+    fine-tuned through ``cache_conditioned_lora_loss`` (rank 16, alpha 32,
+    wq/wv/wo; A random, B zero as ``lora_init`` makes them) for
+    ``LORA_TRAIN_STEPS`` AdamW steps over phase 4's shared 1000-token
+    context, ``LORA_TRAIN_ROWS`` rows of 32-token targets. Each step's
+    wall, peak memory against the base plus the merged targets; the base
+    bit-unchanged, the adapters changed."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lora import cache_conditioned_lora_loss, lora_init
+    from repro_torch.launch.main_path import PROMPT_TOKENS, tokens
+    from repro_torch.models.model import _layers
+    from repro_torch.params import tree_leaves
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.trainer import Trainer
+
+    cfg, base = lora["cfg"], lora["base"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ads = lora_init(base, rank=LORA_RANK,
+                    generator=torch.Generator(TRAIN_DEVICE).manual_seed(11))
+    prompt = tokens(cfg, np.random.default_rng(0), PROMPT_TOKENS)  # phase 4's
+    rng = np.random.default_rng(6)
+    R = LORA_TRAIN_ROWS
+    feed = [{"prompt": np.array([prompt] * R, np.int32),
+             "target_in": rng.integers(4, cfg.vocab_size, (R, 32)),
+             "target_out": rng.integers(4, cfg.vocab_size, (R, 32)),
+             "target_mask": np.ones((R, 32), np.float32)}
+            for _ in range(LORA_TRAIN_STEPS)]
+    before = int_sum(base)
+    lp, _ = next(_layers(cfg, base, None))
+    merged = cfg.n_layers * sum(lp["attn"][k].nbytes
+                                for k in ("wq", "wv", "wo"))
+    base_bytes = sum(x.nbytes for x in tree_leaves(base))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(lambda p, **kw: cache_conditioned_lora_loss(
+        cfg, p, base, alpha=LORA_ALPHA, rank=LORA_RANK, **kw), AdamW(1e-3))
+    with StepClock() as clock:
+        trained, losses = tr.fit(ads, feed)
+    peak = torch.cuda.max_memory_allocated()
+    n_ad = sum(x.numel() for x in tree_leaves(ads))
+    log(f"[train lora] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, rank "
+        f"{LORA_RANK} alpha {LORA_ALPHA} on wq/wv/wo ({n_ad} adapter "
+        f"parameters), {R} rows x ({PROMPT_TOKENS} shared + 32 target) "
+        f"tokens: steps {steps_line(clock.s)}; losses "
+        f"{[round(x, 6) for x in losses]}")
+    log(f"[train lora] max_memory_allocated {peak} B: {peak - mem0} B above "
+        f"what was allocated before ({mem0} B, phase 9's base {base_bytes} B "
+        f"among it); the merged wq/wv/wo of every layer {merged} B on {card}")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert int_sum(base) == before, "the frozen base changed"
+    assert not same_tree(trained, ads), "the adapters did not change"
+
+
+def phase_train_fp32(card):
+    """Phase 17: internlm2-1.8b at full width in fp32, depth cut to
+    ``TRAIN_FP32_LAYERS``, card against CPU: the Eq. 7 loss at share ratio
+    0.5 (layer 0 from the base's cache, layer 1 from the decoder's own,
+    in the graph) within 1e-5; every gradient leaf within 1e-4 of its
+    largest CPU element (fp32 sums in another order; TF32 is off); one
+    AdamW update from the same (CPU) gradients within 1e-6. Then
+    ``_FlashAttention`` at the model's heads (16 over 8, head_dim 128),
+    1024 tokens in 256 x 512 blocks, window and softcap: o, dq, dk, dv
+    within 1e-4 of each one's largest CPU element."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.prefillshare import cache_conditioned_loss
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import attention
+    from repro_torch.params import tree_leaves, tree_map
+    from repro_torch.training import data as D
+    from repro_torch.training.optim import AdamW, apply_updates
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_FP32_LAYERS, dtype="float32")
+    trees = {"cuda": [init_params(cfg, s, TRAIN_DEVICE) for s in (0, 1)]}
+    trees["cpu"] = [tree_map(lambda x: x.cpu(), t) for t in trees["cuda"]]
+    b = next(D.batches(2, D.TaskSpec("copy", prompt_len=10, n_symbols=8,
+                                     vocab=cfg.vocab_size), 4, 1))
+    res = {}
+    for dev, (base, dec) in trees.items():
+        p = tree_map(lambda x: x.detach().requires_grad_(True), dec)
+        loss, _ = cache_conditioned_loss(
+            cfg, p, base, *(torch.tensor(a).to(dec["embed"].device) for a in
+                            (b.prompt, b.target_in, b.target_out,
+                             b.target_mask)), share_ratio=0.5)
+        loss.backward()
+        res[dev] = (loss.item(), tree_map(lambda x: x.grad.cpu(), p))
+    lerr = abs(res["cuda"][0] - res["cpu"][0])
+    assert lerr <= 1e-5 * max(1.0, abs(res["cpu"][0])), res
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for g, w in zip(tree_leaves(res["cuda"][1]),
+                           tree_leaves(res["cpu"][1]))]
+    assert max(rel) <= 1e-4, rel
+    stepped = {}
+    for dev, (_, dec) in trees.items():
+        g = tree_map(lambda w, x: w.to(x.device), res["cpu"][1], dec)
+        opt = AdamW(1e-3, weight_decay=0.01)
+        upd, _ = opt.update(g, opt.init(dec), dec)
+        stepped[dev] = [x.cpu() for x in tree_leaves(apply_updates(dec, upd))]
+    uerr = max(float((a - c).abs().max())
+               for a, c in zip(stepped["cuda"], stepped["cpu"]))
+    assert uerr <= 1e-6, uerr
+    log(f"[train fp32] {cfg.name} at full width, {cfg.n_layers} layers, "
+        f"fp32, Eq. 7 at share ratio 0.5, card vs CPU: loss "
+        f"{res['cpu'][0]:.6f} (|err| {lerr:.3e}, tol 1e-5); "
+        f"{len(rel)} gradient leaves, max|err| / max|grad| per leaf at most "
+        f"{max(rel):.3e} (tol 1e-4); one AdamW update from the same "
+        f"gradients max|err| {uerr:.3e} (tol 1e-6) on {card}")
+    del trees, stepped, res
+
+    rng = np.random.default_rng(8)
+    S, Hq, Hkv, D_ = 1024, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = rng.standard_normal((1, S, Hq, D_), np.float32)
+    k, v = (rng.standard_normal((1, S, Hkv, D_), np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((1, S, Hq, D_), np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        d = TRAIN_DEVICE if dev == "cuda" else dev
+        ts = [torch.tensor(a, device=d, requires_grad=True)
+              for a in (q, k, v)]
+        o = attention(*ts, torch.tensor(pos, device=d),
+                      torch.tensor(pos, device=d), window=300,
+                      softcap=30.0, force_flash=True, q_chunk=256,
+                      kv_chunk=512)
+        o.backward(torch.tensor(do, device=d))
+        out[dev] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    rel = [float((a - c).abs().max() / c.abs().max())
+           for a, c in zip(out["cuda"], out["cpu"])]
+    assert max(rel) <= 1e-4, rel
+    log(f"[train fp32] _FlashAttention at {cfg.name}'s heads ({Hq} over "
+        f"{Hkv}, head_dim {D_}), {S} tokens, window 300, softcap 30, card "
+        f"vs CPU: o, dq, dk, dv max|err| / max {[f'{r:.2e}' for r in rel]} "
+        f"(tol 1e-4) on {card}")
+    gc.collect()
+
+
+# ======================================================================
 
 
 def main() -> int:
@@ -2634,6 +3034,13 @@ def main() -> int:
     phase_lora_identity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
     phase_moe(card, n_layers)
     phase_dense(card, n_layers)
+    t = time.perf_counter()
+    train_cfg, train_base = phase_train(card)
+    phase_train_long(card, train_cfg, train_base)
+    del train_base
+    phase_train_lora(card, lora)
+    phase_train_fp32(card)
+    log(f"[train] phases 14-17 took {time.perf_counter() - t:.1f} s")
     phase_device_times(card, lora)
 
     # each kernel with its launches on the path that runs it: the eager

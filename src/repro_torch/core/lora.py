@@ -1,7 +1,9 @@
 """LoRA adapters and parameter stacking for the fused decode plane.
 
-Port of ``repro.core.lora`` without its training loss
-(``cache_conditioned_lora_loss`` comes with the training code).
+Port of ``repro.core.lora``: the decode module is the frozen base plus
+low-rank adapters, trained with the same cache-conditioned objective
+(Eq. 7, ``cache_conditioned_lora_loss``), so the decode pool stores one
+base copy and N small adapter sets.
 
 Adapter trees mirror the base param tree: every targeted weight position
 holds a ``LoRAPair`` (A, B), every other position holds None.
@@ -36,6 +38,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.prefillshare import cache_conditioned_loss
 from repro_torch.params import tree_leaves, tree_map
 
 DEFAULT_TARGETS = ("wq", "wv", "wo")
@@ -246,3 +249,17 @@ def check_stackable(trees) -> None:
 def unstack_params(stacked, n_models: int) -> list:
     """Per-model views ``[tree[m] for m]`` of a stacked tree (no copy)."""
     return [tree_map(lambda x, m=m: x[m], stacked) for m in range(n_models)]
+
+
+def cache_conditioned_lora_loss(cfg, lora_params, base_params, prompt,
+                                target_in, target_out, target_mask, *,
+                                alpha: float = 16.0, rank: int = 8,
+                                share_ratio: float = 1.0, **kw):
+    """Eq. 7 with θ_dec = θ_base + LoRA: gradients flow ONLY to the adapters
+    (θ_base enters both the frozen prefill and, detached, the merged decode
+    trunk)."""
+    dec = lora_apply(tree_map(torch.Tensor.detach, base_params), lora_params,
+                     alpha=alpha, rank=rank)
+    return cache_conditioned_loss(cfg, dec, base_params, prompt, target_in,
+                                  target_out, target_mask,
+                                  share_ratio=share_ratio, **kw)

@@ -1,15 +1,23 @@
-"""PrefillShare core (paper §3): the frozen base prefill module and the
-cache-compatibility schema.
+"""PrefillShare core (paper §3): the frozen base prefill module,
+cache-conditioned fine-tuning (Eq. 7) and the cache-compatibility schema.
 
-Port of the serving half of ``repro.core.prefillshare``: one frozen base
-model prefills the shared prompt into the paged pool (whole, or in chunks
-that attend straight from the pages); task-specific decode models read that
-KV with zero copy. Archs whose sequence state is not paged KV (SSD and
-RG-LRU states, window caches, enc-dec cross caches) prefill into a dense
-cache instead (``base_prefill``), which the decode model receives as a
-copy. The schema names which base produced a cache, so a decoder trained
-against another base is refused at handoff. Cache-conditioned fine-tuning
-arrives with the training slice.
+Port of ``repro.core.prefillshare``. One frozen base model prefills the
+shared prompt into the paged pool (whole, or in chunks that attend
+straight from the pages); task-specific decode models read that KV with
+zero copy. Archs whose sequence state is not paged KV (SSD and RG-LRU
+states, window caches, enc-dec cross caches) prefill into a dense cache
+instead (``base_prefill``), which the decode model receives as a copy. The
+schema names which base produced a cache, so a decoder trained against
+another base is refused at handoff.
+
+Cache-conditioned fine-tuning (Eq. 7):
+    L(θ_dec) = −Σ_t log P(y_t | y_<t, stop_grad(C_base); θ_dec)
+teacher forcing over the target, the prompt's cache produced by the frozen
+base. Every decode module is trained against the same frozen prefill, so
+their caches are mutually compatible and one prefill serves them all.
+``share_ratio`` (the paper's Fig. 2 knob) is the fraction of layers whose
+prompt cache comes from the base; the rest come from the decode model's own
+prefill, which then stays in the autograd graph.
 """
 from __future__ import annotations
 
@@ -21,19 +29,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encode, forward, init_cache
-from repro_torch.params import tree_leaves
+from repro_torch.models.layers import unembed
+from repro_torch.models.model import train_loss
+from repro_torch.params import tree_leaves, tree_map
 
 
-@torch.no_grad()
 def base_prefill(cfg: ModelConfig, base_params, tokens, *, cache_len: int,
-                 pos=None, cache=None, prefix_embeds=None, enc_embeds=None):
-    """Run the frozen base prefill module; returns (last_logits, C_base).
+                 pos=None, cache=None, prefix_embeds=None, enc_embeds=None,
+                 stop_grad: bool = True):
+    """Run the (frozen) base prefill module; returns (last_logits, C_base).
 
     Supports PARTIAL prefill: pass an existing ``cache`` + ``pos`` to extend
-    it with newly appended tokens only (paper §3.3 step 1). The cache is
-    updated in place. ``prefix_embeds`` feed a mixed- or embeds-input
-    model; ``enc_embeds`` an enc-dec model's encoder, whose output fills
-    the cross cache (``enc_len`` rows)."""
+    it with newly appended tokens only (paper §3.3 step 1). Serving (no
+    autograd recording) updates the cache in place; while autograd records
+    the forward returns a new cache (``models.forward``). ``stop_grad``
+    detaches the returned cache from the graph (Eq. 7's
+    ``stop_grad(C_base)``); False keeps it (a decode model's own prompt
+    cache under ``share_ratio < 1``). ``prefix_embeds`` feed a mixed- or
+    embeds-input model; ``enc_embeds`` an enc-dec model's encoder, whose
+    output fills the cross cache (``enc_len`` rows)."""
     B = tokens.shape[0]
     device = tokens.device
     enc_out = None
@@ -46,6 +60,8 @@ def base_prefill(cfg: ModelConfig, base_params, tokens, *, cache_len: int,
         pos = torch.zeros((B,), dtype=torch.int32, device=device)
     out, cache, _ = forward(cfg, base_params, tokens, cache=cache, pos=pos,
                             prefix_embeds=prefix_embeds, enc_out=enc_out)
+    if stop_grad:
+        cache = tree_map(torch.Tensor.detach, cache)
     return out, cache
 
 
@@ -104,6 +120,106 @@ def base_prefill_chunk(cfg: ModelConfig, base_params, tokens, *, pool,
             cache=cache, pos=torch.as_tensor(pos, dtype=torch.int32).to(dev),
             logits="hidden")
     return cache
+
+
+# ======================================================================
+# Share-ratio mixing (Fig. 2 mechanism)
+
+
+def _layer_share_mask(cfg: ModelConfig, ratio: float):
+    """Boolean per layer: True = use the base model's cache for this layer.
+    The first ``round(ratio * n_layers)`` layers share (bottom-up, the
+    paper's progressive-sharing sweep)."""
+    n = cfg.n_layers
+    k = int(round(ratio * n))
+    return [i < k for i in range(n)]
+
+
+def mix_caches(cfg: ModelConfig, cache_base, cache_self, ratio: float):
+    """Per-layer blend: layers under the share mask take the base cache.
+    A stacked group picks per layer along its ``n_full`` axis
+    (``torch.where``); a tail layer is taken whole from one side."""
+    if ratio >= 1.0:
+        return cache_base
+    if ratio <= 0.0:
+        return cache_self
+    mask = _layer_share_mask(cfg, ratio)
+    pat = cfg.layer_pattern
+    n_full = cfg.n_layers // len(pat)
+
+    def pick(m, b, s):
+        sel = torch.tensor(m, device=b.device).reshape(
+            (n_full,) + (1,) * (b.dim() - 1))
+        return torch.where(sel, b, s)
+
+    groups = {}
+    for i in range(len(pat)):
+        m = [mask[g * len(pat) + i] for g in range(n_full)]
+        groups[f"pos{i}"] = tree_map(lambda b, s, m=m: pick(m, b, s),
+                                     cache_base["groups"][f"pos{i}"],
+                                     cache_self["groups"][f"pos{i}"])
+    tail = [bt if mask[n_full * len(pat) + t] else st
+            for t, (bt, st) in enumerate(zip(cache_base["tail"],
+                                             cache_self["tail"]))]
+    return {"groups": groups, "tail": tail}
+
+
+# ======================================================================
+# Cache-conditioned fine-tuning loss (Eq. 7)
+
+
+def cache_conditioned_loss(cfg: ModelConfig, dec_params, base_params, prompt,
+                           target_in, target_out, target_mask, *,
+                           share_ratio: float = 1.0, prefix_embeds=None,
+                           enc_embeds=None, remat: bool = False):
+    """−Σ log P(y_t | y_<t, C_base; θ_dec) / Σ mask, gradients only through
+    θ_dec (the base's cache is detached). prompt: (B, Sp) shared-context
+    tokens; target_in/out: (B, St) teacher-forced decoder input and
+    next-token labels; target_mask: (B, St). ``share_ratio < 1`` mixes in
+    the decode model's own prompt cache, kept in the graph. An MoE model
+    adds 0.01 times the decode forward's load-balancing loss. Returns
+    (loss, aux); the target's logits are taken whole, as in the
+    reference."""
+    B, Sp = prompt.shape
+    St = target_in.shape[1]
+    npfx = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    cache_len = Sp + npfx + St
+    kw = dict(cache_len=cache_len, prefix_embeds=prefix_embeds,
+              enc_embeds=enc_embeds)
+    _, c_base = base_prefill(cfg, base_params, prompt, stop_grad=True, **kw)
+    if share_ratio < 1.0:
+        _, c_self = base_prefill(cfg, dec_params, prompt, stop_grad=False,
+                                 **kw)
+        cache = mix_caches(cfg, c_base, c_self, share_ratio)
+    else:
+        cache = c_base
+    pos = torch.full((B,), Sp + npfx, dtype=torch.int32, device=prompt.device)
+    hidden, _, aux = forward(cfg, dec_params, target_in, cache=cache, pos=pos,
+                             logits="hidden", remat=remat)
+    table = dec_params.get("unembed", dec_params["embed"])
+    logits = unembed(hidden, table, cfg.final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, target_out.long()[..., None])[..., 0]
+    nll = (lse - picked) * target_mask
+    loss = nll.sum() / torch.clamp(target_mask.sum(), min=1.0)
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux["lb_loss"]
+    return loss, aux
+
+
+def full_ft_loss(cfg: ModelConfig, params, prompt, target_in, target_out,
+                 target_mask, **kw):
+    """Baseline: standard full fine-tuning (the model's own cache). A plain
+    next-token loss over [prompt; target] masked to the target segment; the
+    prompt's last token predicts ``target_in[:, 0]``."""
+    tokens = torch.cat([prompt, target_in], dim=1)
+    pmask = torch.zeros(prompt.shape, dtype=torch.float32,
+                        device=prompt.device)
+    tgt = torch.cat([prompt[:, 1:], target_in[:, :1], target_out], dim=1)
+    mask = torch.cat([pmask, target_mask], dim=1)
+    return train_loss(cfg, params, tokens, tgt, mask, remat=False,
+                      prefix_embeds=kw.get("prefix_embeds"),
+                      enc_embeds=kw.get("enc_embeds"))
 
 
 # ======================================================================

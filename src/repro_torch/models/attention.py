@@ -5,9 +5,16 @@ Port of ``repro.models.attention``. Two dense execution paths share one mask
 semantics (positions are explicit: ``q_pos`` (B, Sq), ``k_pos`` (B, Tk),
 ``k_pos = -1`` marks an unwritten cache slot):
   - ``_direct``: materialized scores (the default below the flash switch);
-  - ``_flash``: chunked online softmax, forward only in this slice.
+  - ``_flash``: chunked online softmax, differentiable through
+    ``_FlashAttention`` (the reference's ``custom_vjp``: only ``o`` and the
+    log-sum-exp are saved, each block's scores are recomputed backward).
 Both keep the reference's op order, so the paged plane (``_paged_apply``)
 and the dense path give identical greedy tokens.
+
+Dense caches are written in place while serving. While autograd records
+(training, ``inplace=False``) every cache write makes new tensors instead:
+a layer's saved view of a stacked cache must never be overwritten by the
+next layer's write.
 
 The paged plane writes each step's K/V rows straight into the shared pool
 with an in-place ``index_put_`` (the reference's ``kp.at[pg, slot].set``)
@@ -57,13 +64,14 @@ def _direct(qg, k, v, q_pos, k_pos, window, softcap):
 
 
 def _flash(qg, k, v, q_pos, k_pos, window, softcap, q_chunk, kv_chunk):
-    """Forward of the reference's ``_flash_fwd_impl``: online softmax over
-    kv chunks, one q chunk at a time. Returns (B, Sq, Hkv, G, D)."""
+    """The reference's ``_flash_fwd_impl``: online softmax over kv chunks,
+    one q chunk at a time. Returns (o (B, Sq, Hkv, G, D) in v's dtype,
+    lse (B, Hkv, G, Sq) fp32)."""
     B, Sq, Hkv, G, D = qg.shape
     Tk = k.shape[1]
     Cq = _pick_chunk(Sq, q_chunk)
     Ck = _pick_chunk(Tk, kv_chunk)
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, Sq, Cq):
         qb = qg[:, q0:q0 + Cq].float()
         qp = q_pos[:, q0:q0 + Cq]
@@ -85,9 +93,74 @@ def _flash(qg, k, v, q_pos, k_pos, window, softcap, q_chunk, kv_chunk):
             acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
                                                        p, vb)
             m = m_new
-        o = acc / torch.clamp(lden, min=1e-30)[..., None]
-        outs.append(o.permute(0, 3, 1, 2, 4).to(v.dtype))   # (B,Cq,Hkv,G,D)
-    return torch.cat(outs, dim=1)
+        lden = torch.clamp(lden, min=1e-30)
+        outs.append((acc / lden[..., None]).permute(0, 3, 1, 2, 4).to(v.dtype))
+        lses.append(m + torch.log(lden))                     # (B,Hkv,G,Cq)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd(qg, k, v, q_pos, k_pos, o, lse, do, window, softcap,
+               q_chunk, kv_chunk):
+    """The reference's ``_flash_bwd_impl``: recompute each block's
+    probabilities from (q, k, lse), ``Drow = sum(do * o)``, the softcap's
+    chain rule ``ds *= 1 - tanh^2``; dq per q chunk, dk/dv accumulated
+    over q chunks, all in fp32. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, Sq, Hkv, G, D = qg.shape
+    Tk = k.shape[1]
+    Cq = _pick_chunk(Sq, q_chunk)
+    Ck = _pick_chunk(Tk, kv_chunk)
+    dk = torch.zeros((B, Tk, Hkv, D), dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for q0 in range(0, Sq, Cq):
+        qb = qg[:, q0:q0 + Cq].float()
+        qp = q_pos[:, q0:q0 + Cq]
+        dob = do[:, q0:q0 + Cq].float()
+        drow = torch.einsum("bqhgd,bqhgd->bhgq", dob,
+                            o[:, q0:q0 + Cq].float())
+        lseb = lse[..., q0:q0 + Cq, None]
+        dq_b = torch.zeros_like(qb)
+        for k0 in range(0, Tk, Ck):
+            kb, vb = k[:, k0:k0 + Ck].float(), v[:, k0:k0 + Ck].float()
+            s_raw = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb)
+            mask = _block_mask(qp, k_pos[:, k0:k0 + Ck], window)
+            s = torch.where(mask, _softcap(s_raw, softcap), _NEG)
+            p = torch.exp(s - lseb) * mask                  # (B,H,G,Cq,Ck)
+            dv[:, k0:k0 + Ck] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
+            ds = p * (dp - drow[..., None])
+            if softcap:
+                t = torch.tanh(s_raw / softcap)
+                ds = ds * (1.0 - t * t)
+            dq_b += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+            dk[:, k0:k0 + Ck] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
+        dqs.append(dq_b)
+    return (torch.cat(dqs, dim=1).to(qg.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable ``_flash`` (the reference's ``custom_vjp``): the
+    forward saves only its inputs, ``o`` and ``lse``, never a chunk's
+    scores; the backward is ``_flash_bwd``. The integer positions get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, q_pos, k_pos, window, softcap, q_chunk,
+                kv_chunk):
+        o, lse = _flash(qg, k, v, q_pos, k_pos, window, softcap, q_chunk,
+                        kv_chunk)
+        ctx.save_for_backward(qg, k, v, q_pos, k_pos, o, lse)
+        ctx.args = (window, softcap, q_chunk, kv_chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qg, k, v, q_pos, k_pos, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(qg, k, v, q_pos, k_pos, o, lse, do,
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def attention(q, k, v, q_pos, k_pos, *, window: int = 0, softcap=None,
@@ -102,7 +175,8 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0, softcap=None,
     use_flash = force_flash if force_flash is not None else (
         Sq * Tk > 4096 * 2048)
     if use_flash:
-        o = _flash(qg, k, v, q_pos, k_pos, window, softcap, q_chunk, kv_chunk)
+        o = _FlashAttention.apply(qg, k, v, q_pos, k_pos, window, softcap,
+                                  q_chunk, kv_chunk)
     else:
         o = _direct(qg, k, v, q_pos, k_pos, window, softcap)
     return o.reshape(B, Sq, Hq, D)
@@ -206,29 +280,34 @@ def init_attn_cache(cfg, kind, batch, cache_len, dtype, device, lead=()):
                                device=device)}
 
 
-def _update_global(cache, k, v, q_pos):
+def _update_global(cache, k, v, q_pos, inplace: bool = True):
     """Write (B, S, f) rows at positions ``q_pos = pos + arange(S)`` into the
-    dense cache, in place. As the reference's ``dynamic_update_slice``, a
-    write that would run past the cache's end is moved back to end there
-    (its start is clamped to ``T - S``); ``kpos`` records the true
-    positions."""
+    dense cache. As the reference's ``dynamic_update_slice``, a write that
+    would run past the cache's end is moved back to end there (its start is
+    clamped to ``T - S``); ``kpos`` records the true positions. In place,
+    or (``inplace=False``, while autograd records) into new tensors,
+    returned as a new ``{"k", "v", "kpos"}``."""
     B, S = q_pos.shape
     T = cache["k"].shape[1]
     start = torch.clamp(q_pos[:, :1].long(), 0, T - S)
     rows = start + torch.arange(S, device=q_pos.device)
-    bidx = torch.arange(B, device=rows.device)[:, None].expand(B, S)
-    cache["k"].index_put_((bidx, rows), k)
-    cache["v"].index_put_((bidx, rows), v)
-    cache["kpos"].index_put_((bidx, rows), q_pos)
+    idx = (torch.arange(B, device=rows.device)[:, None].expand(B, S), rows)
+    if not inplace:
+        return {"k": cache["k"].index_put(idx, k),
+                "v": cache["v"].index_put(idx, v),
+                "kpos": cache["kpos"].index_put(idx, q_pos)}
+    cache["k"].index_put_(idx, k)
+    cache["v"].index_put_(idx, v)
+    cache["kpos"].index_put_(idx, q_pos)
     return cache
 
 
-def _update_window(cache, k, v, q_pos):
-    """A sliding-window cache keeps the LAST ``t`` keys, in place. As in the
-    reference, a chunk of ``s >= t`` tokens leaves only its own last ``t``
-    keys, and the layer then attends over this cache alone, so the chunk's
-    early queries lose keys inside their window (a reference behaviour the
-    port keeps)."""
+def _update_window(cache, k, v, q_pos, inplace: bool = True):
+    """A sliding-window cache keeps the LAST ``t`` keys (in place, or as a
+    new dict with ``inplace=False``). As in the reference, a chunk of
+    ``s >= t`` tokens leaves only its own last ``t`` keys, and the layer
+    then attends over this cache alone, so the chunk's early queries lose
+    keys inside their window (a reference behaviour the port keeps)."""
     t = cache["k"].shape[1]
     s = k.shape[1]
     if s >= t:
@@ -237,6 +316,8 @@ def _update_window(cache, k, v, q_pos):
         new = {"k": torch.cat([cache["k"][:, s:], k], dim=1),
                "v": torch.cat([cache["v"][:, s:], v], dim=1),
                "kpos": torch.cat([cache["kpos"][:, s:], q_pos], dim=1)}
+    if not inplace:
+        return new
     for key in ("k", "v", "kpos"):
         cache[key].copy_(new[key])
     return cache
@@ -258,17 +339,21 @@ def project_qkv(p, x, cfg, q_pos):
     return q, k, v
 
 
-def _cross_apply(p, q, cfg, cache, enc_out):
+def _cross_apply(p, q, cfg, cache, enc_out, inplace: bool = True):
     """Cross-attention over the encoder output: prefill (``enc_out`` given)
-    computes the encoder K/V and writes them into the cross cache, decode
-    (``enc_out=None``) reads them back. Every query sees every key (``q_pos``
-    is int32's max). An empty cross cache (an enc-dec model served on
-    tokens alone) gives zero attention outputs, as in the reference."""
+    computes the encoder K/V and writes them into the cross cache (with
+    ``inplace=False``: returns them as a new cross cache), decode
+    (``enc_out=None``) reads them back. Every query sees every key
+    (``q_pos`` is int32's max). An empty cross cache (an enc-dec model
+    served on tokens alone) gives zero attention outputs, as in the
+    reference."""
     B, S = q.shape[:2]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if enc_out is not None:
         kf, vf = enc_out @ p["wk"], enc_out @ p["wv"]
-        if cache is not None:
+        if not inplace:
+            cache = {"k": kf, "v": vf}
+        elif cache is not None:
             cache["k"].copy_(kf)
             cache["v"].copy_(vf)
     else:
@@ -285,19 +370,23 @@ def _cross_apply(p, q, cfg, cache, enc_out):
 
 
 def attn_apply(p, x, cfg, kind=ATTN, *, cache=None, pos=None, enc_out=None,
-               cross: bool = False, causal: bool = True):
+               cross: bool = False, causal: bool = True,
+               inplace: bool = True):
     """One attention layer. x: (B, S, D); pos: (B,) starting absolute
     position of x's first token; cache: dense or paged cache dict, or None
     (self-attention over x alone; ``causal=False`` lets every query see
     every key, the encoder's case). ``kind=LOCAL_ATTN`` attends within
     ``cfg.sliding_window``; ``cross=True`` is the decoder's block over the
-    encoder output. Returns (out, cache); caches are updated in place."""
+    encoder output. Returns (out, cache): caches are updated in place, or,
+    with ``inplace=False`` (the functional path, taken while autograd
+    records), a dense cache's new tensors come back in a new dict and no
+    tensor is written."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == LOCAL_ATTN else 0
     if cross:
         q = (x @ p["wq"]).reshape(B, S, hq, hd)
-        return _cross_apply(p, q, cfg, cache, enc_out)
+        return _cross_apply(p, q, cfg, cache, enc_out, inplace)
     if pos is None:
         pos = torch.zeros((B,), dtype=torch.int32, device=x.device)
     q_pos = pos[:, None] + torch.arange(S, dtype=torch.int32,
@@ -317,9 +406,9 @@ def attn_apply(p, x, cfg, kind=ATTN, *, cache=None, pos=None, enc_out=None,
     else:
         kf, vf = k.reshape(B, S, hkv * hd), v.reshape(B, S, hkv * hd)
         if kind == LOCAL_ATTN and cfg.sliding_window:
-            cache = _update_window(cache, kf, vf, q_pos)
+            cache = _update_window(cache, kf, vf, q_pos, inplace)
         else:
-            cache = _update_global(cache, kf, vf, q_pos)
+            cache = _update_global(cache, kf, vf, q_pos, inplace)
         t = cache["k"].shape[1]
         o = attention(q, cache["k"].reshape(B, t, hkv, hd),
                       cache["v"].reshape(B, t, hkv, hd), q_pos, cache["kpos"],

@@ -17,12 +17,16 @@ decode (S=1), and the single-model paged step over a paged cache (global
 attention only). ``decode_stacked`` is the fused plane's step: M decoders'
 weights stacked on a leading model axis advance an (M, Bmax) grid of
 sequences, one ``paged_decode`` launch per layer over the flattened
-M * Bmax batch. Caches are updated in place.
+M * Bmax batch. Serving updates caches in place; while autograd records
+(training) the forward is functional and returns new caches instead.
+``train_loss`` is the chunked next-token cross-entropy of pretraining and
+full fine-tuning.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -32,6 +36,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (embed_lookup, mlp_apply, rmsnorm,
                                        unembed)
+from repro_torch.params import tree_leaves, tree_map
 
 _KINDS = (ATTN, LOCAL_ATTN, RGLRU, SSD)
 
@@ -248,31 +253,37 @@ def _store(cache, new) -> None:
         cache[key].copy_(val)
 
 
-def _apply_layer(lp, x, cfg, kind, cache, pos, enc_out=None):
-    """One layer (its cache updated in place). Returns (x, MoE aux or {})."""
+def _apply_layer(lp, x, cfg, kind, cache, pos, enc_out=None,
+                 inplace: bool = True):
+    """One layer. Returns (x, MoE aux or {}, cache): the cache updated in
+    place, or with ``inplace=False`` (the functional path) a new layer
+    cache dict of new tensors, nothing written."""
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
     aux = {}
     if kind in (ATTN, LOCAL_ATTN):
-        out, _ = attn_mod.attn_apply(lp["attn"], h, cfg, kind, cache=cache,
-                                     pos=pos)
+        out, c = attn_mod.attn_apply(lp["attn"], h, cfg, kind, cache=cache,
+                                     pos=pos, inplace=inplace)
     elif kind == RGLRU:
-        out, new = rglru_mod.rglru_apply(lp["rglru"], h, cfg, cache=cache)
-        if cache is not None:
-            _store(cache, new)
+        out, c = rglru_mod.rglru_apply(lp["rglru"], h, cfg, cache=cache)
     elif kind == SSD:
-        out, new = ssd_mod.ssd_apply(lp["ssd"], h, cfg, cache=cache)
-        if cache is not None:
-            _store(cache, new)
+        out, c = ssd_mod.ssd_apply(lp["ssd"], h, cfg, cache=cache)
     else:
         raise ValueError(kind)
+    if cache is not None and not inplace:
+        cache = {**cache, **c}
+    elif cache is not None and kind in (RGLRU, SSD):
+        _store(cache, c)
     x = x + out
     if "cross" in lp:
         # prefill (enc_out given) writes the cross cache, decode reads it
         hx = rmsnorm(x, lp["norm_x"], cfg.norm_eps)
-        out, _ = attn_mod.attn_apply(
+        out, cc = attn_mod.attn_apply(
             lp["cross"], hx, cfg, ATTN, enc_out=enc_out, cross=True,
-            cache=cache.get("cross") if cache is not None else None)
+            cache=cache.get("cross") if cache is not None else None,
+            inplace=inplace)
         x = x + out
+        if cache is not None and not inplace:
+            cache["cross"] = cc
     if "norm2" in lp:
         h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
         if "moe" in lp:
@@ -280,7 +291,7 @@ def _apply_layer(lp, x, cfg, kind, cache, pos, enc_out=None):
         else:
             out2 = mlp_apply(lp["mlp"], h2)
         x = x + out2
-    return x, aux
+    return x, aux, cache
 
 
 def _aux_zero(device):
@@ -308,6 +319,87 @@ def _layers(cfg, params, cache, axis: int = 0):
         yield params["tail"][i], None if cache is None else cache["tail"][i]
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked group subtree, one ``unbind`` per leaf:
+    its backward stacks all layers' gradients in one op, where each
+    layer's ``select`` would add a zero-filled tensor of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _add_aux(aux, ax) -> None:
+    for k in ax:
+        aux[k] = aux[k] + ax[k]
+
+
+def recording(*trees) -> bool:
+    """True when autograd records through a forward over ``trees`` (params,
+    caches, input embeddings): grad mode is on and some leaf requires a
+    gradient. Then the forward takes the functional cache path."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for t in tree_leaves(tree))
+
+
+def _group(cfg, kinds, pos, enc_out, x, lps, lcs):
+    """One repetition of the layer pattern on the functional path: returns
+    (x, the layers' new caches, summed aux)."""
+    aux, new = _aux_zero(x.device), []
+    for lp, lc, kind in zip(lps, lcs, kinds):
+        x, ax, nc = _apply_layer(lp, x, cfg, kind, lc, pos, enc_out,
+                                 inplace=False)
+        _add_aux(aux, ax)
+        new.append(nc)
+    return x, new, aux
+
+
+def _functional_layers(cfg, params, x, cache, pos, enc_out, remat):
+    """Every layer on the functional path (no tensor is written in place):
+    stacked weights and caches are unbound once, each group of
+    ``layer_pattern`` layers runs under ``torch.utils.checkpoint`` when
+    ``remat`` (the reference's ``jax.checkpoint(group_body)``: memory, not
+    values), and the layers' new caches are stacked back into the
+    reference's layout. Returns (x, new cache or None, aux)."""
+    if cache is not None and any("k_pages" in c for c in (
+            *cache["groups"].values(), *cache["tail"])):
+        raise NotImplementedError(
+            "the paged pool is written in place; differentiate through a "
+            "dense cache")
+    pat, n_full, tail = _group_structure(cfg)
+    aux = _aux_zero(x.device)
+    new_groups = {}
+    if n_full:
+        gp = [_unbind(params["groups"][f"pos{i}"], n_full)
+              for i in range(len(pat))]
+        gc = None if cache is None else [
+            _unbind(cache["groups"][f"pos{i}"], n_full)
+            for i in range(len(pat))]
+        outs = []
+        for layer in range(n_full):
+            lps = [g[layer] for g in gp]
+            lcs = [None] * len(pat) if gc is None else [g[layer] for g in gc]
+            args = (cfg, pat, pos, enc_out, x, lps, lcs)
+            x, nc, ax = (checkpoint(_group, *args, use_reentrant=False)
+                         if remat else _group(*args))
+            _add_aux(aux, ax)
+            outs.append(nc)
+        if cache is not None:
+            new_groups = {f"pos{i}": tree_map(lambda *xs: torch.stack(xs),
+                                              *(o[i] for o in outs))
+                          for i in range(len(pat))}
+    new_tail = []
+    for i, kind in enumerate(tail):
+        x, ax, nc = _apply_layer(
+            params["tail"][i], x, cfg, kind,
+            None if cache is None else cache["tail"][i], pos, enc_out,
+            inplace=False)
+        _add_aux(aux, ax)
+        new_tail.append(nc)
+    new = None if cache is None else {"groups": new_groups, "tail": new_tail}
+    return x, new, aux
+
+
 def _embed(cfg, table, index):
     """Embedding rows times sqrt(d), in the model dtype (the reference's
     ``jnp.asarray(sqrt(d), dtype)``). ``index`` is a token tensor, or a
@@ -323,8 +415,7 @@ def encode(cfg: ModelConfig, params, embeds):
     frontend is a stub): (B, T, D) -> (B, T, D)."""
     x = embeds.to(torch_dtype(cfg.dtype))
     enc = params["encoder"]
-    for layer in range(cfg.encoder_layers):
-        lp = _layer_slice(enc["groups"], layer, 0)
+    for lp in _unbind(enc["groups"], cfg.encoder_layers):
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
         # bidirectional: all positions valid for all queries
         out, _ = attn_mod.attn_apply(lp["attn"], h, cfg, ATTN, causal=False)
@@ -334,7 +425,8 @@ def encode(cfg: ModelConfig, params, embeds):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
-            prefix_embeds=None, enc_out=None, logits: str = "last"):
+            prefix_embeds=None, enc_out=None, logits: str = "last",
+            remat: bool = False):
     """Run the decoder stack. tokens: (B, S) int; pos: (B,) int32 absolute
     position of the first input row (None -> zeros). ``prefix_embeds``
     (B, P, D): a mixed-input model prepends them to the token embeddings,
@@ -343,8 +435,16 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
     reads the cross cache). Returns (output, cache, aux): last-row logits
     (B, V), all logits (B, S, V) or hidden states (B, S, D) for ``logits``
     in {"last", "all", "hidden"}; aux holds the MoE layers' summed
-    ``lb_loss`` and ``dropped_frac`` (zeros without MoE layers). A cache (dense or paged) is
-    updated in place and returned."""
+    ``lb_loss`` and ``dropped_frac`` (zeros without MoE layers).
+
+    Serving (no autograd recording): a cache, dense or paged, is updated
+    in place and returned. While autograd records (``recording``: grad mode
+    on and some parameter, cache or input tensor requires a gradient) the
+    forward is functional: every layer makes new cache tensors, the
+    returned cache is a new tree in the reference's layout (each group's
+    layers stacked) and the given one is left as it was; ``remat=True``
+    then recomputes each ``layer_pattern`` group in the backward
+    (``torch.utils.checkpoint``), which changes memory, never values."""
     _check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     if cfg.input_mode == "mixed" and prefix_embeds is not None:
@@ -357,11 +457,14 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
         x = _embed(cfg, params["embed"], tokens)
     if pos is None:
         pos = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    aux = _aux_zero(x.device)
-    for (lp, lc), kind in zip(_layers(cfg, params, cache), _kinds(cfg)):
-        x, ax = _apply_layer(lp, x, cfg, kind, lc, pos, enc_out)
-        for k in ax:
-            aux[k] = aux[k] + ax[k]
+    if recording(params, cache, prefix_embeds, enc_out):
+        x, cache, aux = _functional_layers(cfg, params, x, cache, pos,
+                                           enc_out, remat)
+    else:
+        aux = _aux_zero(x.device)
+        for (lp, lc), kind in zip(_layers(cfg, params, cache), _kinds(cfg)):
+            x, ax, _ = _apply_layer(lp, x, cfg, kind, lc, pos, enc_out)
+            _add_aux(aux, ax)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     table = params.get("unembed", params["embed"])
     if logits == "hidden":
@@ -431,3 +534,52 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
     x = rmsnorm(x, top["final_norm"], cfg.norm_eps)
     table = top.get("unembed", top["embed"])
     return unembed(x, table, cfg.final_softcap)
+
+
+# ======================================================================
+# losses
+
+
+def _chunk_nll(h, table, t, m, softcap):
+    """One CE chunk: (sum of masked NLL, sum of the mask); under
+    ``torch.utils.checkpoint`` the (B, c, V) logits are recomputed in the
+    backward, never kept."""
+    logits = unembed(h, table, softcap)                        # (B,c,V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, t.long()[..., None])[..., 0]
+    return ((lse - picked) * m).sum(), m.sum()
+
+
+def train_loss(cfg: ModelConfig, params, tokens, targets, mask, *,
+               prefix_embeds=None, enc_embeds=None, remat: bool = True,
+               ce_chunk: int = 512, lb_coeff: float = 0.01):
+    """Next-token CE over ``targets`` (B, S) weighted by ``mask`` (B, S),
+    with the unembedding taken ``ce_chunk`` rows at a time (the reference's
+    ``while S % c: c -= 1``), each chunk checkpointed so no (B, S, V) logits
+    are stored. A mixed-input model's prefix rows are stripped first; an
+    enc-dec model encodes ``enc_embeds``; an MoE model adds ``lb_coeff``
+    times the load-balancing loss. Returns (loss, aux)."""
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = encode(cfg, params, enc_embeds)
+    hidden, _, aux = forward(cfg, params, tokens, prefix_embeds=prefix_embeds,
+                             enc_out=enc_out, logits="hidden", remat=remat)
+    if cfg.input_mode == "mixed" and prefix_embeds is not None:
+        hidden = hidden[:, prefix_embeds.shape[1]:]
+    table = params.get("unembed", params["embed"])
+    S = hidden.shape[1]
+    c = ce_chunk
+    while S % c:
+        c -= 1
+    nlls, counts = [], []
+    for i in range(0, S, c):
+        args = (hidden[:, i:i + c], table, targets[:, i:i + c],
+                mask[:, i:i + c], cfg.final_softcap)
+        nll, cnt = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        nlls.append(nll)
+        counts.append(cnt)
+    loss = torch.stack(nlls).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                 min=1.0)
+    if cfg.is_moe:
+        loss = loss + lb_coeff * aux["lb_loss"]
+    return loss, aux

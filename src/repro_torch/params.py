@@ -1,4 +1,5 @@
-"""Parameter trees: carry the reference's weights across, and tree helpers.
+"""Parameter trees: carry the reference's weights across (and back), and
+tree helpers.
 
 A parameter tree is the reference's layout in plain Python containers:
 nested dicts (and the ``tail`` list) of tensors, with the same keys, the
@@ -97,21 +98,37 @@ def adapters_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
     return conv(tree)
 
 
+def params_to_numpy(tree):
+    """The port's tree -> the same tree of host numpy arrays, the export
+    half of ``params_from_numpy``: bf16 leaves become fp32 (npz stores no
+    bf16, as in the reference's checkpoints), every other dtype is kept."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(conv, tree)
+
+
+def read_npz(path: str) -> dict:
+    """A checkpoint's arrays by their "/"-joined keys (the manifest's
+    ``keys``), loaded into memory."""
+    stem = path.removesuffix(".npz")
+    with open(stem + ".json") as f:
+        keys = json.load(f)["keys"]
+    with np.load(stem + ".npz") as npz:
+        return {key: npz[key] for key in keys}
+
+
 def load_npz(path: str) -> dict:
     """Read a reference checkpoint (``repro.training.checkpoint.save``) into
     a numpy parameter tree. Keys are "/"-joined paths; integer path parts
     index the ``tail`` list. bf16 leaves were stored as f32."""
-    stem = path.removesuffix(".npz")
-    with open(stem + ".json") as f:
-        keys = json.load(f)["keys"]
     tree: dict = {}
-    with np.load(stem + ".npz") as npz:
-        for key in keys:
-            parts = key.split("/")
-            node = tree
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = npz[key]
+    for key, arr in read_npz(path).items():
+        parts = key.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
     tree = _lists(tree)
     if "embed" in tree:                    # empty containers leave no keys
         tree.setdefault("groups", {})

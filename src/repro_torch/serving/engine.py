@@ -376,6 +376,7 @@ class DensePrefillWorker:
         self.ewma = ThroughputEWMA()
         self.pending_chunk_tokens = 0
 
+    @torch.no_grad()
     def prefill(self, sid: int, tokens) -> SessionCache:
         """Prefill ``tokens`` into the session's cache: the whole context
         for a new session, else only the appended tail (the context is

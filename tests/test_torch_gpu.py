@@ -15,7 +15,9 @@ the other archs (MoE, SSD, RG-LRU, sliding windows) and every ``ASSIGNED``
 arch's engine at ``reduced()`` width run on the card against the CPU, the
 MoE ones on the paged plane (granite-moe-3b-a800m's heads, a query group
 of 3 at head_dim 64, are also in the kernel cases), the rest on the dense
-fallback.
+fallback. Training (plain torch, no kernel): the flash backward, an Eq. 7
+step and an AdamW update on the card against the CPU, and serving's
+tokens beside a training step.
 """
 import numpy as np
 import pytest
@@ -787,3 +789,102 @@ def test_arch_engine_on_card_matches_cpu(card, name):
         chunked, _ = _arch_engine_tokens(name, card, cpu, **kw)
         assert flash_prefill_paged.launches > before
         assert chunked == _arch_engine_tokens(name, "cpu", cpu, **kw)[0]
+
+
+# ======================================================================
+# training on the card: the flash backward, an Eq. 7 step, and serving
+# beside it (fp32, TF32 off)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, None), (96, 30.0)])
+def test_flash_attention_grads_on_card_match_cpu(card, window, softcap):
+    """``_FlashAttention`` (plain torch on either device) at internlm2-1.8b's
+    heads (16 over 8, head_dim 128), 256 tokens in 64 x 128 blocks, ragged
+    slots: o, dq, dk, dv on the card equal the CPU's within rtol 1e-4 /
+    atol 1e-4 (fp32, summed in another order)."""
+    from repro_torch.models.attention import attention
+    rng = np.random.default_rng(0)
+    B, S, Hq, Hkv, D = 2, 256, 16, 8, 128
+    q = rng.standard_normal((B, S, Hq, D), np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D), np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((B, S, Hq, D), np.float32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    k_pos = pos.copy()
+    k_pos[1, -40:] = -1
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ts = [torch.tensor(a, device=dev, requires_grad=True)
+              for a in (q, k, v)]
+        o = attention(*ts, torch.tensor(pos, device=dev),
+                      torch.tensor(k_pos, device=dev), window=window,
+                      softcap=softcap, force_flash=True, q_chunk=64,
+                      kv_chunk=128)
+        o.backward(torch.tensor(do, device=dev))
+        out[dev] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_eq7_step_on_card_matches_cpu(card):
+    """One Eq. 7 step at a reduced config (internlm2-1.8b's, 2 layers,
+    d_model 256, share ratio 0.5 so the decoder's own cache stays in the
+    graph): the loss within 1e-5 and every gradient leaf within rtol 1e-4
+    / atol 1e-5, card against CPU; then one AdamW update from the same
+    (CPU) gradients on each device, within 1e-6."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.prefillshare import cache_conditioned_loss
+    from repro_torch.training import data as D
+    from repro_torch.training.optim import AdamW, apply_updates
+    cfg = get_config("internlm2-1.8b").reduced(vocab=64)
+    base = init_params(cfg, 0, device="cpu")
+    dec = init_params(cfg, 1, device="cpu")
+    b = next(D.batches(0, D.TaskSpec("copy", prompt_len=10, n_symbols=8,
+                                     vocab=64), 4, 1))
+    arrays = (b.prompt, b.target_in, b.target_out, b.target_mask)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.detach().to(dev).requires_grad_(True), dec)
+        loss, _ = cache_conditioned_loss(
+            cfg, p, tree_map(lambda x: x.to(dev), base),
+            *(torch.tensor(a, device=dev) for a in arrays), share_ratio=0.5)
+        loss.backward()
+        res[dev] = (loss.detach().cpu(), tree_map(lambda x: x.grad.cpu(), p))
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b_ in zip(tree_leaves(res["cuda"][1]), tree_leaves(res["cpu"][1])):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5)
+    stepped = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), dec)
+        g = tree_map(lambda x: x.to(dev), res["cpu"][1])
+        opt = AdamW(1e-3, weight_decay=0.01)
+        upd, _ = opt.update(g, opt.init(p), p)
+        stepped[dev] = [x.cpu() for x in tree_leaves(apply_updates(p, upd))]
+    for a, b_ in zip(stepped["cuda"], stepped["cpu"]):
+        torch.testing.assert_close(a, b_, rtol=1e-6, atol=1e-6)
+
+
+def test_serving_tokens_unchanged_beside_training_on_card(card):
+    """A toy engine's greedy tokens on the card are the CPU's, before and
+    after a training step ran on the card in the same process with grad
+    mode on (the decoder's leaves requiring grad)."""
+    from repro_torch.core.prefillshare import cache_conditioned_loss
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.trainer import Trainer
+    cfg, cpu = _toy_weights("hd16")
+    want = _toy_tokens(cfg, cpu, "cpu")[0]
+    assert _toy_tokens(cfg, cpu, "cuda")[0] == want
+    base = tree_map(lambda x: x.cuda(), cpu["base"])
+    tr = Trainer(lambda p, **kw: cache_conditioned_loss(cfg, p, base, **kw),
+                 AdamW(1e-3))
+    rng = np.random.default_rng(0)
+    batch = {"prompt": rng.integers(4, 60, (2, 8)),
+             "target_in": rng.integers(4, 60, (2, 5)),
+             "target_out": rng.integers(4, 60, (2, 5)),
+             "target_mask": np.ones((2, 5), np.float32)}
+    batch = {k: torch.tensor(v).cuda() for k, v in batch.items()}
+    dec = tree_map(lambda x: x.cuda(), cpu["m0"])
+    _, _, loss = tr.step(dec, tr.opt.init(dec), batch)
+    assert torch.isfinite(loss) and torch.is_grad_enabled()
+    assert _toy_tokens(cfg, cpu, "cuda")[0] == want

@@ -77,4 +77,10 @@ print(" ".join(names))
             "repro_torch.configs.chatglm3_6b",
             "repro_torch.configs.granite_8b",
             "repro_torch.configs.internlm2_1_8b",
-            "repro_torch.configs.qwen3"} <= visited
+            "repro_torch.configs.qwen3",
+            "repro_torch.training",
+            "repro_torch.training.data",
+            "repro_torch.training.optim",
+            "repro_torch.training.checkpoint",
+            "repro_torch.training.trainer",
+            "repro_torch.launch.train"} <= visited
