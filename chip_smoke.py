@@ -88,7 +88,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      per step, greedy and sampled; peak memory within the base held once,
      the adapters, the pool, one layer's merged weights for the four lanes
      and 2 GiB; the plane's ``param_bytes`` beside four full decoders'; a
-     step's wall time (the merge's device time in phase 7);
+     step's wall time (the merge's device time in phase 7). Then phase
+     18;
   10. (after phase 6) four LoRA decode models at full width, depth cut to
      4 layers, fp32 and bf16: tokens of the fused LoRA group == the
      all-full plane of the materialized trees, and in fp32 also == the
@@ -109,7 +110,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      cost model's re-prefill prediction beside the measured chunk time,
      auto mode's choices, high-priority TTFT/ITL p50/p95 armed and
      unarmed, and the greedy tokens that agree with the unarmed run (not
-     asserted in bf16);
+     asserted in bf16). Then relay over the same pair, eager over
+     ``ROOMY_PAGES``: a 1000-token prompt answered by "mb", then a prompt
+     that extends it by the answer; with ``relay=True`` the answer's
+     decode-written pages are published and the follow-up's prefill hits
+     them (asserted), with ``relay=False`` nothing is published;
   12. (after phase 10) MoE on the paged main path: granite-moe-3b-a800m
      at full width and depth (bf16, seeded random weights with output
      projections scaled by ``main_path.OUT_SCALE``), phase 4's traffic
@@ -119,8 +124,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      just after each path, the memory bound, free pages back to baseline,
      TTFT/ITL p50/p95, the prefills' ``dropped_frac`` by forward shape and
      the chunked-against-eager token agreement (printed: expert capacity
-     depends on each forward's S); then 4 layers in fp32: the base's
-     logits and the greedy tokens, eager and chunked, card == CPU;
+     depends on each forward's S); then 4 layers in fp32 (output
+     projections at ``FP32_OUT_SCALE``): the base's logits and the greedy
+     tokens, eager and chunked, card == CPU, with at least
+     ``FP32_MIN_DISTINCT`` distinct tokens;
   13. the dense fallback at full width, one arch at a time (weights freed
      before the next): mamba2-780m, recurrentgemma-2b,
      seamless-m4t-medium and gemma2-27b (4 layers), a base and two
@@ -128,8 +135,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      32-token request per model, a seeded sampled request and a one-shot
      one): prefix reuse, the session's pages released by ``end_session``,
      peak memory while serving within the weights + 2 GiB, TTFT, the B=1
-     decode loop's wall a token; then 2-3 layers in fp32: the base's
-     logits and the greedy tokens, card == CPU.
+     decode loop's wall a token; then 2-3 layers in fp32 (as in 12): the
+     base's logits and the greedy tokens, card == CPU, with at least
+     ``FP32_MIN_DISTINCT`` distinct tokens.
   14. training (after phase 13; plain torch, no kernel: no TPU kernel lies
      on the training path): ``launch/train.py``'s path on internlm2-1.8b
      at full width and depth (24 layers, d_model 2048, vocab 92544, bf16,
@@ -155,6 +163,19 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      heads over 1024 tokens, card against CPU (tolerances in
      ``phase_train_fp32``). Phases 14-17 run before phase 7, whose
      profiler would slow them.
+  18. (after phase 9) the serving simulator and its launcher: ``python -m
+     repro_torch.launch.serve --engine local`` on the card and with
+     ``--device cpu``, each in a process of its own (identical output,
+     asserted); the simulator (``serving/simulator.py``) at Llama-3.1-8B
+     width on the H100's figures, react, baseline and PrefillShare at
+     ``SIM_RATES`` (every session completes; p95 e2e, p95 TTFT, throughput
+     and their ratios printed beside the paper's 4.5x/3.9x); what its
+     ``CostModel`` charges for phase 5's 200-token chunk forwards and phase
+     4's fused decode step, beside their wall times and the device times
+     that ``python -m repro_torch.launch.profile --chunked`` (a process of
+     its own) measures; and decode-plane relayouts on phase 9's plane (a
+     fifth LoRA adapter registered, then unregistered), the simulator's
+     ``churn_rebuild_s``.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -162,6 +183,7 @@ beside it and a CUDA card; without either it prints no result and exits 1.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1384,6 +1406,8 @@ def phase_chunked(card, eager: dict):
         f"{total} (not asserted)")
     report_metrics(eng, card, "chunked")
     eager["base"] = eng.base_params            # phase 9's base, held once
+    # phase 18 sets the cost model beside the chunk forwards timed here
+    eager["chunked_context_s"], eager["chunked_turns"] = context_s, turns
     # phase 11's weights: the stacked decoders (phase 9 frees them)
     eager["decoders"] = {m: dw.spec.full for m, dw in eng.decoders.items()}
     return launches
@@ -1876,8 +1900,9 @@ def phase_lora(card, eager):
     log(f"[lora] a LoRA decode step took "
         f"{fmt_ms(1e3 * wall / s['decode_steps'])} of wall time on average "
         f"(prefills included) on {card}")
-    # the base and the adapters stay for phase 7's device time of a merge
-    return dict(cfg=cfg, base=base, ab=group.stacked["ab"])
+    # the base and the adapters stay for phase 7's device time of a merge;
+    # phase 18 times a relayout of this plane, then drops the engine
+    return dict(cfg=cfg, base=base, ab=group.stacked["ab"], engine=eng)
 
 
 # ======================================================================
@@ -2002,17 +2027,30 @@ def paged_small_turns(eng, cfg):
     return out
 
 
+#: output-projection scale of the fp32 card == CPU checks' weights (phases
+#: 12-13; tied-embedding configs only). At ``main_path.OUT_SCALE`` (16) a
+#: random 2-4 layer model can answer one token throughout, so a token check
+#: could pass on a constant; each check prints its distinct tokens
+FP32_OUT_SCALE = 256.0
+#: the fewest distinct greedy tokens an fp32 token check accepts
+FP32_MIN_DISTINCT = 3
+
+
 def card_and_cpu(model, n_layers):
     """fp32 weights at full width, depth ``n_layers``, built on the card
-    (two decoders stacked, row 1 also the base) and copied to the CPU:
+    (two decoders stacked, row 1 also the base; output projections at
+    ``FP32_OUT_SCALE``) and copied to the CPU:
     ``{device: (cfg, base, {"m0", "m1"})}``."""
     import torch
 
     from repro_torch.core.lora import unstack_params
-    from repro_torch.launch.main_path import build_weights
+    from repro_torch.launch.main_path import (OUT_SCALE, build_weights,
+                                              scale_outputs)
     from repro_torch.params import tree_map
     cfg, base, stacked = build_weights(model, n_layers, None, "float32")
     del base                                  # row 1 serves as the base
+    if cfg.tie_embeddings:                    # build_weights gave OUT_SCALE
+        scale_outputs(stacked, FP32_OUT_SCALE / OUT_SCALE)
     out = {}
     for dev, st in (("cuda", stacked),
                     ("cpu", tree_map(lambda x: x.cpu(), stacked))):
@@ -2071,10 +2109,11 @@ def moe_fp32(card, n_layers: int):
             del eng
         assert got["cuda"] == got["cpu"], (mode, got)
         n = sum(map(len, got["cuda"]))
+        distinct = len(set(t for r in got["cuda"] for t in r))
         log(f"[moe fp32] {MOE_MODEL} {n_layers} layers fp32 {mode}: card "
-            f"greedy tokens == CPU greedy tokens, all {n} "
-            f"({len(set(t for r in got['cuda'] for t in r))} distinct) on "
-            f"{card}")
+            f"greedy tokens == CPU greedy tokens, all {n} ({distinct} "
+            f"distinct, at least {FP32_MIN_DISTINCT} asserted) on {card}")
+        assert distinct >= FP32_MIN_DISTINCT, (mode, got)
     del both
 
 
@@ -2226,10 +2265,11 @@ def dense_fp32(card, name, n_layers: int):
         del eng, base, decs
     del both
     assert got["cuda"] == got["cpu"], (name, got)
+    distinct = len(set(t for r in got["cuda"] for t in r))
     log(f"[dense fp32] {name} {n_layers} layers fp32: card greedy tokens == "
-        f"CPU greedy tokens, all {sum(map(len, got['cuda']))} "
-        f"({len(set(t for r in got['cuda'] for t in r))} distinct) on "
-        f"{card}")
+        f"CPU greedy tokens, all {sum(map(len, got['cuda']))} ({distinct} "
+        f"distinct, at least {FP32_MIN_DISTINCT} asserted) on {card}")
+    assert distinct >= FP32_MIN_DISTINCT, (name, got)
 
 
 #: phase 13's fp32 depth per arch: one whole layer group
@@ -2619,6 +2659,247 @@ def phase_preempt(card, eager):
                    for a, b in zip(x, y))
         log(f"[preempt] {name}: greedy tokens equal to the unarmed run's: "
             f"{same} of {total} (not asserted in bf16)")
+    relay_step(card, cfg, decs, device)
+
+
+#: the relay chain's answers: the first request's, then the follow-up's
+RELAY_GEN = (32, 16)
+
+
+def relay_chain(eng, cfg):
+    """tests/test_relay.py's chain at full width on the base itself
+    (``"mb"``): a request over a fresh 1000-token prompt, then one whose
+    prompt is that prompt, the first decode input and the answer, so its
+    prefix lies in pages the first request's DECODE wrote. Returns both
+    answers."""
+    import numpy as np
+
+    from repro_torch.launch.main_path import PROMPT_TOKENS, tokens
+    from repro_torch.serving import SamplingParams
+    prompt = tokens(cfg, np.random.default_rng(5), PROMPT_TOKENS)
+    a = [int(t) for t in eng.generate(
+        "mb", prompt, SamplingParams(max_tokens=RELAY_GEN[0])).result()]
+    b = [int(t) for t in eng.generate(
+        "mb", prompt + [2] + a,
+        SamplingParams(max_tokens=RELAY_GEN[1])).result()]
+    return a, b
+
+
+def relay_step(card, cfg, decs, device):
+    """Relay at full width and depth (bf16) over phase 11's pair, eager,
+    ``ROOMY_PAGES``: with ``relay=True`` the first answer's decode-written
+    pages are published and the follow-up's prefill is served from them
+    (asserted: a publish and relay hit tokens); ``relay=False`` publishes
+    nothing. Both pools return to baseline. How many follow-up tokens agree
+    is printed, not asserted (bf16: the relayed KV was written by S=1
+    decode steps, the cold one by an S>1 prefill)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.main_path import preempt_engine
+    got = {}
+    for relay in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = preempt_engine(cfg, decs, device, ROOMY_PAGES, relay=relay)
+        free0 = eng.block_pool.free_count
+        t0 = time.perf_counter()
+        got[relay] = relay_chain(eng, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = eng.stats()
+        if relay:
+            assert s["relay_publishes"] >= 1 and s["relay_hit_tokens"] > 0, s
+        else:
+            assert s["relay_publishes"] == 0 and s["relay_hit_tokens"] == 0, s
+        assert eng.block_pool.active_count == 0, eng.block_pool.active_count
+        eng.block_pool.check_invariants()
+        log(f"[relay] relay={relay}: chain of {RELAY_GEN} tokens on model mb "
+            f"in {wall:.3f} s; relay_publishes {s['relay_publishes']}, "
+            f"relay_pages_published {s['relay_pages_published']}, "
+            f"relay_hit_tokens {s['relay_hit_tokens']}, prefill tokens "
+            f"reused {s['prefill_tokens_reused']} (free pages {free0} "
+            f"before) on {card}")
+        del eng
+    same = sum(x == y for x, y in zip(got[True][1], got[False][1]))
+    assert got[True][0] == got[False][0], got      # the same first request
+    log(f"[relay] follow-up tokens equal with and without relay: {same} of "
+        f"{RELAY_GEN[1]} (not asserted in bf16)")
+
+
+# ======================================================================
+# phase 18: the serving simulator, the serve launcher, and the cost model
+# beside the measured steps (run after phase 9)
+
+
+#: the simulator's cell: Llama-3.1-8B at its published widths, the react
+#: agent pattern, the serve launcher's default session count and admission
+#: cap, one H100 a worker, at a light and a heavy arrival rate (sessions/s)
+SIM_SESSIONS, SIM_MAX_CONCURRENT, SIM_RATES = 80, 64, (2.0, 8.0)
+#: the paper's headline ratios (Figs. 3-4): baseline p95 latency over
+#: PrefillShare's, PrefillShare throughput over the baseline's
+PAPER_P95_RATIO, PAPER_THROUGHPUT_RATIO = 4.5, 3.9
+#: relayouts timed on phase 9's plane (each a register or an unregister)
+RELAYOUT_PAIRS = 3
+#: the serve launcher's local-engine run (the reference's toy fp32 config)
+SERVE_ARGS = ["--engine", "local", "--turns", "1", "--gen", "4"]
+
+
+def serve_output(device: str | None):
+    """``python -m repro_torch.launch.serve`` with ``SERVE_ARGS`` (and
+    ``--device``) in a process of its own; its output lines and wall."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_ARGS]
+    if device is not None:
+        cmd += ["--device", device]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, (cmd, r.stderr[-4000:])
+    return r.stdout.splitlines(), time.perf_counter() - t0
+
+
+def profile_steps():
+    """``python -m repro_torch.launch.profile --chunked`` in a process of
+    its own (its profiler stays out of this one): the main path's chunked
+    engine, whose JSON line gives the device time of a fused decode step
+    of 4 rows and of a 1000-token context's five 200-token chunk
+    forwards."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.profile", "--chunked"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, (cmd, r.stderr[-4000:])
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def time_relayouts(eng, base, card) -> list:
+    """Seconds of each decode-plane relayout on ``eng`` (phase 9's plane of
+    four LoRA lanes): a fifth adapter registered and the plane rebuilt at
+    the step boundary (``models.sync``), then unregistered and rebuilt,
+    ``RELAYOUT_PAIRS`` times, each bracketed by ``synchronize``."""
+    import torch
+
+    from repro_torch.core.lora import lora_init
+    from repro_torch.serving import DecodeModelSpec, LoRAAdapter
+    g = torch.Generator(device=base["embed"].device).manual_seed(99)
+    spec = DecodeModelSpec(lora=LoRAAdapter(
+        lora_init(base, rank=LORA_RANK, generator=g), alpha=LORA_ALPHA,
+        rank=LORA_RANK))
+    times = []
+    for _ in range(RELAYOUT_PAIRS):
+        for change in (lambda: eng.models.register("l4", spec),
+                       lambda: eng.models.unregister("l4")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            change()
+            eng.models.sync()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    assert eng.models.list() == sorted(LORA_MODELS), eng.models.list()
+    (group,) = eng.decode_plane.groups
+    assert group.lora and len(group.model_ids) == len(LORA_MODELS)
+    log(f"[sim] decode-plane relayouts on phase 9's plane ({len(LORA_MODELS)}"
+        f" LoRA lanes, a fifth registered then unregistered, "
+        f"{RELAYOUT_PAIRS} times): s {[f'{t:.6f}' for t in times]} on "
+        f"{card}")
+    return times
+
+
+def phase_sim(card, eager, lora):
+    """Phase 18. The serve launcher's local engine on the card and on the
+    CPU (the same greedy tokens, asserted); the serving simulator at
+    Llama-3.1-8B width on the H100's figures, baseline and PrefillShare at
+    ``SIM_RATES`` (every session completes; the ratios are printed beside
+    the paper's); what the simulator's ``CostModel`` charges for the steps
+    phases 4-5 timed, beside their wall times and the device times of
+    ``launch.profile``; and a decode-plane relayout on phase 9's plane,
+    the simulator's ``churn_rebuild_s``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.main_path import CHUNKED, MODEL, PROMPT_TOKENS
+    from repro_torch.serving import (CostModel, ServingConfig, Simulator,
+                                     make_sessions)
+    from repro_torch.serving.costmodel import HBM_BYTES
+    from repro_torch.serving.simulator import CHURN_REBUILD_S
+
+    t_phase = time.perf_counter()
+    times = time_relayouts(lora.pop("engine"), lora["base"], card)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[sim] relayout median {np.median(times):.6f} s (ServingConfig."
+        f"churn_rebuild_s is {CHURN_REBUILD_S}) on {card}")
+
+    out = {}
+    for dev in (None, "cpu"):
+        out[dev], wall = serve_output(dev)
+        log(f"[sim] python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}"
+            f"{' --device ' + dev if dev else ''} ({wall:.1f} s): "
+            f"{out[dev]}")
+    assert out[None] == out["cpu"], out
+    assert len(out[None]) == 4 and out[None][-1].startswith("hit_ratio=")
+    log(f"[sim] serve launcher: card tokens == CPU tokens ({card})")
+
+    cfg = get_config(MODEL)
+    res = {}
+    for rate in SIM_RATES:
+        for mode in ("baseline", "prefillshare"):
+            t0 = time.perf_counter()
+            sim = Simulator(cfg, ServingConfig(
+                mode=mode, chips_per_worker=1, hbm_per_worker=HBM_BYTES,
+                max_concurrent=SIM_MAX_CONCURRENT), make_sessions(
+                    "react", n_sessions=SIM_SESSIONS, arrival_rate=rate,
+                    seed=0))
+            r = res[(mode, rate)] = sim.run()
+            assert r["sessions_done"] == SIM_SESSIONS, r
+            assert np.isfinite(r["p95_e2e_s"]) and r["throughput_tok_s"] > 0
+            log(f"[sim] {cfg.name} react, {SIM_SESSIONS} sessions at {rate}/s,"
+                f" {mode}, one H100 (80 GB) a worker: p95 e2e "
+                f"{r['p95_e2e_s']:.6f} s, p95 TTFT {r['p95_ttft_s']:.6f} s, "
+                f"throughput {r['throughput_tok_s']:.3f} tok/s, prefix hit "
+                f"{r['prefix_hit_ratio']:.4f}, evictions {r['evictions']}, "
+                f"staged {r['staged_frac']:.4f} ({time.perf_counter() - t0:.2f}"
+                f" s of host time)")
+        b, p = res[("baseline", rate)], res[("prefillshare", rate)]
+        log(f"[sim] rate {rate}/s: baseline/PrefillShare p95 e2e "
+            f"{b['p95_e2e_s'] / p['p95_e2e_s']:.4f}x (paper "
+            f"{PAPER_P95_RATIO}x), p95 TTFT "
+            f"{b['p95_ttft_s'] / p['p95_ttft_s']:.4f}x; PrefillShare/"
+            f"baseline throughput "
+            f"{p['throughput_tok_s'] / b['throughput_tok_s']:.4f}x (paper "
+            f"{PAPER_THROUGHPUT_RATIO}x); printed, not asserted")
+
+    prof = profile_steps()
+    cost = CostModel(cfg, chips=1)
+    chunk = CHUNKED["chunk_size"]
+    starts = range(0, PROMPT_TOKENS, chunk)
+    model_ctx = sum(cost.prefill(min(chunk, PROMPT_TOKENS - st), st).seconds
+                    for st in starts)
+    ctx_dev = prof["context_prefill_device_ms"]
+    log(f"[sim] {PROMPT_TOKENS}-token context in {len(starts)} chunk "
+        f"forwards of {chunk}: CostModel {model_ctx:.6f} s; phase 5 wall "
+        f"{eager['chunked_context_s']:.6f} s; device "
+        f"{'not measured' if ctx_dev is None else f'{ctx_dev / 1e3:.6f} s'}"
+        f" (launch.profile) on {card}")
+    kv = PROMPT_TOKENS + 32 + 16       # mid-answer in turn 0
+    fused = 2 * cost.decode_step(2, kv).seconds
+    one = cost.decode_step(4, kv).seconds
+    eager_step = [t["s"] / t["steps"] for t in eager["turns"]]
+    step_dev = prof["decode_step_device_ms"]
+    log(f"[sim] fused decode step, 2 decoders x 2 rows at ~{kv} tokens: "
+        f"CostModel {fused:.6f} s (two decode_step(2); one model's "
+        f"decode_step(4) {one:.6f} s); phase 4 wall per step "
+        f"{[f'{x:.6f}' for x in eager_step]} s; launch.profile events "
+        f"{np.median(prof['decode_step_ms']) / 1e3:.6f} s, device "
+        f"{'not measured' if step_dev is None else f'{step_dev / 1e3:.6f} s'}"
+        f" on {card}")
+    log(f"[sim] phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ======================================================================
@@ -3016,6 +3297,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     n_layers = int(sys.argv[1]) if len(sys.argv) > 1 else None
+    t_start = time.perf_counter()
 
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
@@ -3029,6 +3311,7 @@ def main() -> int:
     chunked_launches = phase_chunked(card, eager)
     phase_preempt(card, eager)
     lora = phase_lora(card, eager)
+    phase_sim(card, eager, lora)
     del eager
     phase_fp32_parity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
     phase_lora_identity(card, min(FP32_LAYERS, n_layers or FP32_LAYERS))
@@ -3066,6 +3349,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

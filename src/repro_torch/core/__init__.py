@@ -1,3 +1,5 @@
 from repro_torch.core.prefillshare import (CacheSchema, base_prefill,
-                                           base_prefill_paged, cache_schema,
-                                           model_fingerprint)
+                                           base_prefill_paged,
+                                           cache_conditioned_loss,
+                                           cache_schema, full_ft_loss,
+                                           mix_caches, model_fingerprint)

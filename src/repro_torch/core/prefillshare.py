@@ -171,7 +171,8 @@ def mix_caches(cfg: ModelConfig, cache_base, cache_self, ratio: float):
 def cache_conditioned_loss(cfg: ModelConfig, dec_params, base_params, prompt,
                            target_in, target_out, target_mask, *,
                            share_ratio: float = 1.0, prefix_embeds=None,
-                           enc_embeds=None, remat: bool = False):
+                           enc_embeds=None, remat: bool = False,
+                           ce_chunk: int = 512):
     """−Σ log P(y_t | y_<t, C_base; θ_dec) / Σ mask, gradients only through
     θ_dec (the base's cache is detached). prompt: (B, Sp) shared-context
     tokens; target_in/out: (B, St) teacher-forced decoder input and
@@ -179,7 +180,7 @@ def cache_conditioned_loss(cfg: ModelConfig, dec_params, base_params, prompt,
     the decode model's own prompt cache, kept in the graph. An MoE model
     adds 0.01 times the decode forward's load-balancing loss. Returns
     (loss, aux); the target's logits are taken whole, as in the
-    reference."""
+    reference, which accepts ``ce_chunk`` and ignores it."""
     B, Sp = prompt.shape
     St = target_in.shape[1]
     npfx = prefix_embeds.shape[1] if prefix_embeds is not None else 0

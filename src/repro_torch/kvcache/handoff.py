@@ -8,9 +8,11 @@ feeds it to ``observe_paged``; ``plan_paged`` reports the EWMA of those wall
 times, 0.0 before the first observation.
 
 The dense fallback hands a COPY of the session cache to the decode model
-(``transfer_cache``); ``plan`` counts the bytes of such a copy.
-``quantize_cache`` compresses a cache to symmetric per-channel int8
-for that wire, bit for bit as the reference does.
+(``transfer_cache``). ``plan`` prices such a copy between two cards, the
+serving simulator's model: bytes over ``n_links`` links, with the
+Appendix-B.2 staging penalty when the bytes exceed the decode side's free
+device memory. ``quantize_cache`` compresses a cache to symmetric
+per-channel int8 for that wire, bit for bit as the reference does.
 """
 from __future__ import annotations
 
@@ -28,32 +30,50 @@ class SchemaMismatch(Exception):
     """Receiving decoder was not trained against this base prefill module."""
 
 
+#: one NVLink 4 link of an H100 SXM, one way (GB/s): 18 links carry 900
+#: GB/s both ways together per card (NVIDIA's data sheet), 25 GB/s each way
+#: a link. A data-sheet figure: one card cannot measure a card-to-card link.
+NVLINK_GBPS = 25.0
+#: NVLink 4 links of one H100 SXM (same data sheet)
+NVLINK_LINKS = 18
+
+
 @dataclass
 class HandoffPlan:
     bytes: int
     seconds: float
+    staged: bool          # True if the staging penalty applied (B.2)
 
 
 class HandoffChannel:
-    """Handoff channel between prefill and decode: ``plan`` counts a dense
-    cache copy's bytes, ``plan_paged`` reports the measured zero-copy
-    handoff."""
+    """Handoff channel between prefill and decode: ``plan`` prices a dense
+    cache copy over the link (analytic: the simulator's model),
+    ``plan_paged`` reports the measured zero-copy handoff."""
 
     #: EWMA weight for measured handoff samples
     MEASURE_ALPHA = 0.2
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, link_gbps: float = NVLINK_GBPS,
+                 n_links: int = 1, staging_penalty: float = 4.0):
         self.cfg = cfg
+        self.bw = link_gbps * 1e9 * n_links
+        self.staging_penalty = staging_penalty
         self.measured_bytes = 0.0     # EWMA of observed paged-handoff bytes
         self.measured_s = 0.0         # EWMA of observed paged-handoff seconds
         self.samples = 0
 
-    def plan(self, n_tokens: int) -> int:
-        """Bytes of a dense cache of ``n_tokens``: KV bytes per token times
-        tokens plus the constant per-sequence state (the reference's
-        ``plan(n).bytes``; the copy is local, so no link is priced)."""
-        return kv_bytes_per_token(self.cfg) * n_tokens \
+    def plan(self, n_tokens: int, *, decode_hbm_free_bytes: int | None = None
+             ) -> HandoffPlan:
+        """A dense cache of ``n_tokens`` (KV bytes per token times tokens
+        plus the constant per-sequence state) over the link; staged, at
+        ``staging_penalty`` times the time, when the bytes exceed
+        ``decode_hbm_free_bytes``."""
+        b = kv_bytes_per_token(self.cfg) * n_tokens \
             + state_bytes_per_seq(self.cfg)
+        staged = (decode_hbm_free_bytes is not None
+                  and b > max(decode_hbm_free_bytes, 0))
+        secs = b / self.bw * (self.staging_penalty if staged else 1.0)
+        return HandoffPlan(bytes=b, seconds=secs, staged=staged)
 
     def observe_paged(self, nbytes: int, seconds: float) -> None:
         """Feed one MEASURED zero-copy handoff into the estimate."""
@@ -75,7 +95,7 @@ class HandoffChannel:
         """The wire carries ONLY the block table: 4 bytes per page id plus a
         16-byte header; ``seconds`` is the measured EWMA."""
         b = 4 * n_pages + 16
-        return HandoffPlan(bytes=b, seconds=self.measured_s)
+        return HandoffPlan(bytes=b, seconds=self.measured_s, staged=False)
 
     @staticmethod
     def check(producer: CacheSchema, consumer_expected: CacheSchema) -> None:

@@ -15,11 +15,16 @@ Then it measures, untraced:
     (one B=4 chunk forward, the handoffs and the first decode step);
   - fused decode: 8 steps of the resulting batch of 4, each bracketed by
     CUDA events;
-and finally traces, with ``torch.profiler``, one more request's prefill and
-8 steps, and prints the device time by kernel (top 25), the device time per
-kernel class (matrix products, paged_decode, paged_write,
-flash_prefill_paged, the rest) and the device's busy share of the traced
-window's wall time. It needs a card.
+then the device time (``launch.timing.device_ms``) of one fused decode
+step of that batch, and finally traces, with ``torch.profiler``, one more
+request's prefill and 8 steps, and prints the device time by kernel (top
+25), the device time per kernel class (matrix products, paged_decode,
+paged_write, flash_prefill_paged, the rest) and the device's busy share of
+the traced window's wall time. Last, the device time of a new
+1000-token context's prefill (chunked: five 200-token chunk forwards;
+eager: one prefill), a fresh prompt each time, so no prefix is reused.
+``chip_smoke.py`` phase 18 sets these beside the serving simulator's cost
+model. It needs a card.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ def main(argv) -> int:
     from repro_torch.launch.main_path import (CHUNKED, PROMPT_TOKENS,
                                               TAIL_TOKENS, build_engine,
                                               tokens)
+    from repro_torch.launch.timing import device_ms
     from repro_torch.serving import SamplingParams
 
     if not torch.cuda.is_available():
@@ -94,6 +100,7 @@ def main(argv) -> int:
         e1.record()
         e1.synchronize()
         step_ms.append(e0.elapsed_time(e1))
+    step_device_ms = device_ms(eng.step, iters=8)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -106,6 +113,10 @@ def main(argv) -> int:
         window_s = time.perf_counter() - w0
     eng.run()
     ctx.close()
+
+    def context_prefill():
+        eng.shared_context(tokens(cfg, rng, PROMPT_TOKENS)).close()
+    context_device_ms = device_ms(context_prefill, iters=3)
 
     by_class: dict = {}
     busy_us = 0.0
@@ -123,6 +134,9 @@ def main(argv) -> int:
         "card": card, "n_layers": cfg.n_layers, "chunked": chunked,
         ("first_step_s" if chunked else "prefill_s_per_request"): prefill_s,
         "decode_step_ms": step_ms,
+        "decode_step_device_ms": step_device_ms,
+        "context_tokens": PROMPT_TOKENS,
+        "context_prefill_device_ms": context_device_ms,
         "traced_window_s": window_s,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / window_s,

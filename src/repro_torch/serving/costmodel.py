@@ -8,6 +8,8 @@ The hardware figures are the H100's, never the reference's:
   - ``PEAK_FLOPS``: 989e12, dense bf16 on the tensor cores, H100 SXM
     (NVIDIA's data sheet, 700 W part);
   - ``HBM_BW``: 3.35e12 bytes/s, H100 SXM HBM3 (same sheet);
+  - ``HBM_BYTES``: 80e9 bytes of device memory a card (same sheet; the
+    serving simulator's per-worker budget is cards times this);
   - ``MATMUL_EFF`` and ``BW_EFF``: the sustained fractions of those peaks.
     Both are an UNMEASURED PRIOR: round numbers, not fitted to any run.
     ``chip_smoke.py`` phase 11 prints this model's prediction for a
@@ -30,6 +32,7 @@ from repro_torch.kvcache.manager import kv_bytes_per_token, state_bytes_per_seq
 # --- NVIDIA H100 SXM, per card (data sheet, dense, 700 W) ---
 PEAK_FLOPS = 989e12          # bf16 tensor cores
 HBM_BW = 3.35e12             # bytes/s
+HBM_BYTES = 80e9             # device memory (the 80 GB part)
 # unmeasured prior: sustained fraction of the peaks above
 MATMUL_EFF = 0.5
 BW_EFF = 0.8

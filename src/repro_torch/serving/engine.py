@@ -1318,7 +1318,7 @@ class LocalDisaggEngine:
         HandoffChannel.check(self.schema, dw.expected_schema)
         cache = transfer_cache(sc.cache)               # decode-side copy
         self.stats.handoffs += 1
-        self.stats.handoff_bytes += self.handoff.plan(sc.n_tokens)
+        self.stats.handoff_bytes += self.handoff.plan(sc.n_tokens).bytes
         return dw.generate(cache, sc.n_tokens, first_token, params)
 
     def end_session(self, sid: int):

@@ -2,7 +2,9 @@
 copy in ``repro_torch.serving.autoscale`` (decisions equal to the
 reference's on every fuzzed signal), and the engine integration on the
 CPU: a growing prefill pool changes capacity, never the tokens, which
-equal the reference's. The simulator case is the simulator's slice.
+equal the reference's. The simulator case (tests/test_autoscale.py's) runs
+on the H100's figures: one H100 of 80 GB a worker where the reference
+passes one v5e chip of 8 GB.
 """
 import math
 
@@ -17,11 +19,14 @@ from repro.serving.api import SamplingParams as JaxSamplingParams
 from repro.serving.engine import LocalDisaggEngine as JaxEngine
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.params import params_from_numpy
+from repro_torch.configs import get_config
 from repro_torch.serving import (AutoscaleConfig, AutoscaleSignals,
                                  Autoscaler, LocalDisaggEngine,
-                                 ResizeDecision, SamplingParams)
+                                 ResizeDecision, SamplingParams,
+                                 ServingConfig, Simulator)
 from repro_torch.serving.autoscale import decide
 from repro_torch.serving.metrics import lint_prometheus
+from repro_torch.serving.workload import make_diurnal_sessions
 
 
 def _sig(rng, cfg):
@@ -197,6 +202,47 @@ def test_resize_decision_bool():
     assert not ResizeDecision()
     assert ResizeDecision(prefill_delta=1)
     assert ResizeDecision(decode_delta=-1)
+
+
+# ----------------------------------------------------------------------
+# simulator integration
+
+
+#: the prefill-heavy phase's system prompt on the H100's figures (tokens)
+INGEST_SYSTEM = 65536
+
+
+def test_simulator_autoscale_resizes_and_respects_budget():
+    """The diurnal scenario drives real resizes; every applied decision
+    keeps the fleet exactly at budget, and the split actually moves.
+    Raised load: an H100 prefills ~5x faster than a v5e chip (989e12 vs
+    197e12 peak) and holds 10x the memory, so with the reference's
+    2048-token ingest prompts no worker's backlog reaches
+    ``backlog_high_s`` and no decode pool runs short (no resize at all);
+    the prefill-heavy half's system prompts become ``INGEST_SYSTEM``."""
+    cfg = get_config("internlm2-1.8b")
+    ac = AutoscaleConfig(min_prefill=2, max_prefill=6, min_decode=2,
+                         max_decode=6, decode_slots=24, total_budget=8,
+                         interval_s=0.25, cooldown_intervals=0,
+                         backlog_high_s=0.45, backlog_low_s=0.01,
+                         free_page_low=0.35)
+    sessions = make_diurnal_sessions(n_sessions=24, arrival_rate=5.0,
+                                     seed=0, phase_gap_s=8.0)
+    for s in sessions[:12]:
+        s.system_tokens = INGEST_SYSTEM
+    sc = ServingConfig(mode="prefillshare", n_prefill_workers=4,
+                       n_decode_workers=4, max_concurrent=96,
+                       chips_per_worker=1, hbm_per_worker=80e9,
+                       b2_policy="backpressure", prefill_chunk_tokens=256,
+                       max_decode_batch=16, autoscale=ac)
+    sim = Simulator(cfg, sc, sessions)
+    r = sim.run()
+    assert r["resize_events"] > 0
+    assert (r["final_prefill_workers"] + r["final_decode_workers"]
+            == ac.total_budget)
+    for d in sim.autoscaler.decisions:
+        assert d.prefill_delta + d.decode_delta == 0    # funded shifts only
+    assert math.isfinite(r["p95_ttft_s"])
 
 
 # ----------------------------------------------------------------------

@@ -17,7 +17,10 @@ MoE ones on the paged plane (granite-moe-3b-a800m's heads, a query group
 of 3 at head_dim 64, are also in the kernel cases), the rest on the dense
 fallback. Training (plain torch, no kernel): the flash backward, an Eq. 7
 step and an AdamW update on the card against the CPU, and serving's
-tokens beside a training step.
+tokens beside a training step. Relay on a toy engine (a publish and a hit,
+tokens equal to relay off and to the CPU), the serve launcher's local
+engine on the card against ``--device cpu``, and the serving simulator at
+Llama-3.1-8B width.
 """
 import numpy as np
 import pytest
@@ -888,3 +891,72 @@ def test_serving_tokens_unchanged_beside_training_on_card(card):
     _, _, loss = tr.step(dec, tr.opt.init(dec), batch)
     assert torch.isfinite(loss) and torch.is_grad_enabled()
     assert _toy_tokens(cfg, cpu, "cuda")[0] == want
+
+
+# ----------------------------------------------------------------------
+# relay, the serve launcher and the simulator
+
+#: tests/test_relay.py's chain prompt: 2 full pages of 8 and a 4-token tail
+RELAY_PROMPT = list(range(4, 24))
+
+
+def _relay_chain(cfg, base, dev, **engine_kw):
+    """A request of model "a" (the base itself), then one of "b" (the base
+    again) over the first prompt, the first decode input and the answer:
+    with relay on, the follow-up's prefix lies in decode-written pages."""
+    b = tree_map(lambda t: t.to(dev), base)
+    eng = LocalDisaggEngine(cfg, b, device=dev, num_pages=64, page_size=8,
+                            **engine_kw)
+    eng.models.register("a", b)
+    eng.models.register("b", b)
+    a_out = eng.generate("a", RELAY_PROMPT,
+                         SamplingParams(max_tokens=12)).result().tolist()
+    b_out = eng.generate("b", RELAY_PROMPT + [2] + a_out,
+                         SamplingParams(max_tokens=6)).result().tolist()
+    assert eng.block_pool.active_count == 0
+    return (a_out, b_out), eng.stats()
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["eager", "chunked"])
+def test_relay_toy_engine_on_card_matches_cpu(card, chunked):
+    """fp32 toy engine: relay=True tokens on the card == relay=False tokens
+    on the card == relay=True tokens on the CPU; with relay on, a publish
+    and a relay hit, with it off neither."""
+    cfg, cpu = _toy_weights("hd16")
+    kw = dict(chunked=True, chunk_size=5, token_budget=16) if chunked else {}
+    got = {}
+    for dev, relay in (("cuda", True), ("cuda", False), ("cpu", True)):
+        got[dev, relay], s = _relay_chain(cfg, cpu["base"], dev, relay=relay,
+                                          **kw)
+        if relay:
+            assert s["relay_publishes"] >= 1 and s["relay_hit_tokens"] > 0, s
+        else:
+            assert s["relay_publishes"] == 0 and s["relay_hit_tokens"] == 0, s
+    assert got["cuda", True] == got["cuda", False] == got["cpu", True]
+
+
+def test_serve_launcher_on_card_matches_cpu(card, capsys):
+    """``launch.serve --engine local`` on its default device (the card)
+    prints what ``--device cpu`` prints: the turns' tokens and hit ratio."""
+    from repro_torch.launch import serve
+    out = {}
+    for extra in ([], ["--device", "cpu"]):
+        serve.main(["--engine", "local", "--turns", "1", "--gen", "4",
+                    *extra])
+        out[len(extra)] = capsys.readouterr().out
+    assert out[0] == out[2] and "hit_ratio=" in out[0]
+
+
+def test_simulator_full_width_summary_completes(card):
+    """The serving simulator at Llama-3.1-8B width on the H100's figures
+    (one card a worker): every session of both modes completes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import ServingConfig, Simulator, make_sessions
+    cfg = get_config("llama31-8b")
+    for mode in ("baseline", "prefillshare"):
+        r = Simulator(cfg, ServingConfig(mode=mode, chips_per_worker=1,
+                                         hbm_per_worker=80e9),
+                      make_sessions("react", n_sessions=24, arrival_rate=4.0,
+                                    seed=0)).run()
+        assert r["sessions_done"] == 24, r
+        assert np.isfinite(r["p95_e2e_s"]) and r["throughput_tok_s"] > 0

@@ -10,7 +10,8 @@
 - decode quality from a quantized cache: logits within 5e-2 of the fp32
   cache's, the same argmax;
 - ``HandoffChannel.plan``'s bytes equal the reference's ``plan(n).bytes``
-  for every assigned arch;
+  for every assigned arch (on the H100's NVLink default too), and its
+  seconds and staging equal the reference's under the same link settings;
 - ``transfer_cache`` copies: the copy does not alias the original.
 """
 import dataclasses
@@ -143,10 +144,21 @@ def test_decode_quality_from_quantized_cache():
 
 @pytest.mark.parametrize("name", ASSIGNED)
 def test_plan_equals_reference(name):
-    jch = JH.HandoffChannel(jget(name))
-    tch = TH.HandoffChannel(tget(name))
+    """Bytes always; seconds and staging under the same link settings."""
+    link = dict(link_gbps=50.0, n_links=4, staging_penalty=4.0)
+    jch = JH.HandoffChannel(jget(name), **link)
+    tch = TH.HandoffChannel(tget(name), **link)
+    h100 = TH.HandoffChannel(tget(name))
     for n in (0, 37, 1000):
-        assert tch.plan(n) == jch.plan(n).bytes
+        want = jch.plan(n)
+        assert h100.plan(n).bytes == want.bytes
+        assert tch.plan(n) == TH.HandoffPlan(want.bytes, want.seconds,
+                                             want.staged)
+        for free in (-1, 0, want.bytes - 1, want.bytes, 10 * want.bytes):
+            want = jch.plan(n, decode_hbm_free_bytes=free)
+            got = tch.plan(n, decode_hbm_free_bytes=free)
+            assert (got.bytes, got.seconds, got.staged) == \
+                (want.bytes, want.seconds, want.staged)
 
 
 def test_transfer_cache_copies():
