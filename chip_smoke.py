@@ -176,6 +176,18 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      its own) measures; and decode-plane relayouts on phase 9's plane (a
      fifth LoRA adapter registered, then unregistered), the simulator's
      ``churn_rebuild_s``.
+  19. (after phase 15, on phase 14's internlm2-1.8b weights) the step
+     builders at full width (``launch/steps.py``, ``STEP_SHAPES``: decode
+     B=4 against a 32768-token cache, prefill B=1 S=32768, a train step of
+     4 x 4096 tokens with bf16 moments): the materialized arguments hold
+     exactly the single-device dry run's ``argument_size_in_bytes`` and
+     ``memory_allocated`` grows by them within ``MEM_REL``; each step
+     twice by CUDA events, finite outputs, the serve step's greedy tokens
+     equal to ``forward``'s; the dry run's flops over the device time
+     beside 989 TFLOP/s, its temp beside ``max_memory_allocated``. The dry
+     runs (fake tensors, host only) run in a process started before phase
+     1. After phase 4: one row's bf16 logits through the fused decode step
+     at batch widths 1, 2, 4 and 8 (printed, not asserted).
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -3278,6 +3290,202 @@ def phase_train_fp32(card):
 
 
 # ======================================================================
+# phase 19: the step builders at full width (launch/steps.py), each step's
+# single-device dry run (launch/dryrun.py) against the card
+
+#: phase 19's input shapes, registered as ``InputShape``s (name: kind,
+#: seq_len, batch): decode against a 32768-token cache, a 32768-token
+#: prefill, a train step of 4 x 4096 tokens (bf16 AdamW moments)
+STEP_SHAPES = {"step_decode": ("decode", 32768, 4),
+               "step_prefill": ("prefill", 32768, 1),
+               "step_train": ("train", 4096, 4)}
+STEP_TRACES = ROOT / "build" / "step_traces.json"
+MEM_REL = 0.02                     # allocation growth and peak, relative
+
+
+def register_step_shapes():
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape
+    for name, (kind, seq, batch) in STEP_SHAPES.items():
+        INPUT_SHAPES[name] = InputShape(name, seq, batch, kind)
+
+
+def write_step_traces(path) -> None:
+    """The single-device dry run of each ``STEP_SHAPES`` step of
+    ``TRAIN_MODEL`` on fake tensors (host only, no card), as JSON."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    register_step_shapes()
+    cfg = get_config(TRAIN_MODEL)
+    out = {name: dryrun.trace(cfg, name) for name in STEP_SHAPES}
+    Path(path).write_text(json.dumps(out))
+
+
+def start_step_traces():
+    """``write_step_traces`` in a process of its own, started after phase
+    2's kernel timings: tracing the 32768-token prefill on fake tensors
+    takes minutes of host time (every chunk of the flash loop is
+    dispatched), which then runs beside the card's phases. The process
+    sees no card, runs at the lowest priority and is pinned to the last
+    core, and this process to the others, so that the launch-bound timings
+    of the later phases do not share a core with it."""
+    STEP_TRACES.unlink(missing_ok=True)
+    STEP_TRACES.parent.mkdir(parents=True, exist_ok=True)
+    code = (f"import os, sys; os.nice(19); "
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]; "
+            f"import chip_smoke; "
+            f"chip_smoke.write_step_traces({str(STEP_TRACES)!r})")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env)
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) > 1:
+        os.sched_setaffinity(proc.pid, cores[-1:])
+        os.sched_setaffinity(0, cores[:-1])
+    return proc
+
+
+def phase_steps(card, cfg, base, tracer):
+    """Phase 19: ``launch.steps.build(cfg, shape)`` at full width for
+    internlm2-1.8b (phase 14's weights), per ``STEP_SHAPES``: the
+    arguments materialized on the card (``steps.materialize``, the base
+    reused as the params) hold exactly the dry run's single-device
+    ``argument_size_in_bytes`` (a consistency check: both sides are
+    ``steps._arguments``), and ``memory_allocated`` grows by them (less the
+    reused base) within ``MEM_REL``; each step twice, timed by CUDA events,
+    with finite outputs; the peak allocation above the start is the new
+    arguments plus the dry run's predicted temporaries within ``MEM_REL``
+    (the dry run's one prediction independent of the card); the serve
+    step's greedy tokens equal ``forward``'s on the same cache (a
+    consistency check: the serve step is ``forward``); the dry run's flops
+    (torch's FlopCounter formulas) over the device time, beside 989
+    TFLOP/s. The train step rewrites the base in place, so it runs last and
+    the base is dropped after."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models.model import forward
+    from repro_torch.params import tree_leaves
+
+    t_phase = time.perf_counter()
+    rc = tracer.wait(timeout=900)
+    assert rc == 0, f"the dry-run process exited {rc}"
+    traces = json.loads(STEP_TRACES.read_text())
+    log(f"[steps] waited {time.perf_counter() - t_phase:.1f} s for the "
+        f"dry-run process")
+    register_step_shapes()
+    base_bytes = steps.arg_bytes(base)
+    for name, (kind, seq, batch) in STEP_SHAPES.items():
+        pred = traces[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        b = steps.build(cfg, name)
+        args = steps.materialize(cfg, name, TRAIN_DEVICE, params=base,
+                                 seed=19)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - mem0
+        nbytes = steps.arg_bytes(args)
+        assert nbytes == pred["memory"]["argument_size_in_bytes"], (
+            name, nbytes, pred["memory"])
+        assert abs(grown - (nbytes - base_bytes)) <= MEM_REL * (
+            nbytes - base_bytes), (name, grown, nbytes - base_bytes)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(2):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            out = b["fn"](*args)
+            t1.record()
+            t1.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        peak = torch.cuda.max_memory_allocated() - mem0
+        want_peak = nbytes - base_bytes + pred["memory"]["temp_size_in_bytes"]
+        assert abs(peak - want_peak) <= MEM_REL * want_peak, (
+            name, peak, want_peak)
+        if kind == "train":
+            loss = out[2].item()
+            assert math.isfinite(loss), loss
+            assert all(torch.isfinite(x).all() for x in tree_leaves(out[0]))
+            got = f"loss {loss:.4f}"
+        else:
+            logits = out[0]
+            assert torch.isfinite(logits).all(), name
+            got = f"logits {tuple(logits.shape)}"
+            if kind == "decode":
+                with torch.no_grad():
+                    want, _, _ = forward(cfg, base, args[1], cache=args[2],
+                                         pos=args[3])
+                assert torch.equal(logits.argmax(-1), want.argmax(-1)), name
+                got += (f", greedy tokens {logits.argmax(-1).tolist()} "
+                        f"== forward's")
+        flops = pred["cost"]["flops"]
+        best = min(ms)
+        log(f"[steps] {name} ({kind}, B={batch}, S={seq}): {got}; device "
+            f"ms by events {[round(x, 3) for x in ms]}; dry-run flops "
+            f"{flops:.6g} -> {flops / best / 1e9:.2f} TFLOP/s, "
+            f"{flops / best / 1e9 / (BF16_FLOPS / 1e12):.4f} of "
+            f"{BF16_FLOPS / 1e12:.0f}; arguments {nbytes} B (dry run "
+            f"{pred['memory']['argument_size_in_bytes']} B; allocation grew "
+            f"{grown} B for {nbytes - base_bytes} B new), bytes bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; temp predicted "
+            f"{pred['memory']['temp_size_in_bytes']} B, max_memory_allocated "
+            f"{peak} B above the arguments' start (new arguments + temp "
+            f"{want_peak} B, {(peak - want_peak) / want_peak:+.4%}); dry run "
+            f"traced in {pred['lower_s']} s on {card}")
+        del args, out, b
+    log(f"[steps] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ======================================================================
+# Queue 3 item 3: a bf16 row against the fused step's batch width
+
+BF16_WIDTHS = (1, 2, 4, 8)
+
+
+def phase_bf16_width(card, eager):
+    """One fixed row (model 0's token 1234 at position 15 of a page of its
+    own) through phase 4's fused decode step (``decode_stacked`` over the
+    two stacked decoders) at batch widths ``BF16_WIDTHS``, the other rows
+    padding: its bf16 logits' max |delta| against width 1 and whether the
+    argmax agrees, printed. Nothing is asserted (bf16)."""
+    import torch
+
+    from repro_torch.models.model import decode_stacked
+
+    eng, cfg = eager["engine"], eager["cfg"]
+    grp = eng.decode_plane.groups[0]
+    M, dev = len(grp.model_ids), eng.kvpool.device
+    page = eng.block_pool.alloc(1)
+    try:
+        k_layers, v_layers = eng.kvpool.layers()
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = {}
+        with torch.no_grad():
+            for w in BF16_WIDTHS:
+                toks = torch.zeros((M, w), dtype=torch.int32, device=dev)
+                pos = torch.zeros((M, w), dtype=torch.int32, device=dev)
+                bt = torch.zeros((M * w, 1), dtype=torch.int32, device=dev)
+                toks[0, 0], pos[0, 0], bt[0, 0] = 1234, 15, page[0]
+                out[w] = decode_stacked(cfg, grp.stacked, toks, pos,
+                                        k_layers, v_layers, bt, rows=rows,
+                                        lanes=grp._lanes)[0, 0].clone()
+    finally:
+        eng.block_pool.drop(page)
+    ref = out[BF16_WIDTHS[0]]
+    for w in BF16_WIDTHS:
+        d = (out[w] - ref).abs()
+        log(f"[bf16 width] width {w} ({M} x {w} rows): max |delta| against "
+            f"width 1 {d.max().item():.6g}, {int((d == 0).sum())} of "
+            f"{d.numel()} logits equal, argmax {out[w].argmax().item()} "
+            f"(width 1: {ref.argmax().item()}, "
+            f"{'agrees' if out[w].argmax() == ref.argmax() else 'differs'})"
+            f" on {card}")
+
+
+# ======================================================================
 
 
 def main() -> int:
@@ -3298,14 +3506,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     n_layers = int(sys.argv[1]) if len(sys.argv) > 1 else None
     t_start = time.perf_counter()
+    tracers = []
+    try:
+        return run_phases(torch, n_layers, t_start, tracers)
+    finally:
+        for tracer in tracers:
+            if tracer.poll() is None:
+                tracer.kill()
+                tracer.wait()
 
+
+def run_phases(torch, n_layers, t_start, tracers) -> int:
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     phase_build()
     perf = phase_kernels(card)
+    tracers.append(start_step_traces())
     phase_toy_engine()
     eager_launches, eager = phase_main_path(card, n_layers)
+    phase_bf16_width(card, eager)
     api_launches = phase_kernel_api(card, eager)
     phase_sampled(card, eager)
     chunked_launches = phase_chunked(card, eager)
@@ -3320,6 +3540,7 @@ def main() -> int:
     t = time.perf_counter()
     train_cfg, train_base = phase_train(card)
     phase_train_long(card, train_cfg, train_base)
+    phase_steps(card, train_cfg, train_base, tracers[0])
     del train_base
     phase_train_lora(card, lora)
     phase_train_fp32(card)

@@ -29,10 +29,61 @@ import torch
 from repro_torch.configs.base import ATTN, LOCAL_ATTN
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import is_dtensor, rmsnorm
 from repro_torch.models.rope import apply_rope
 
 _NEG = -1e30
+
+#: Sharding hooks of the dry run (``launch/steps.py`` sets them; serving and
+#: training leave them None and pay one None check). ``FLASH_KV_SPEC``: the
+#: DTensor placements the flash path lays its K/V (B, T, Hkv, D) and its
+#: grouped queries (B, S, Hkv, G, D) out in before the chunk loops (batch
+#: on ``data``, heads on ``model`` where they divide), the reference's
+#: ``FLASH_KV_SPEC``: no chunk re-gathers a sharded sequence.
+FLASH_KV_SPEC = None
+
+
+def _split(t, dim: int, parts: tuple):
+    """``t`` with dim ``dim`` viewed as ``parts`` (a head view)."""
+    if is_dtensor(t):
+        t = _even_heads(t, dim, parts[0])
+    return t.reshape(t.shape[:dim] + parts + t.shape[dim + 1:])
+
+
+def _meet_keys(qg, k):
+    """The dry run's direct path: queries (B, S, Hkv, G, D) replicated on
+    ``model`` unless the keys (B, T, Hkv, D) shard their heads there too
+    (a decode cache shards its sequence on ``model``)."""
+    from torch.distributed.tensor import Replicate
+    ax = k.device_mesh.mesh_dim_names.index("model")
+    if k.placements[ax].is_shard(2) and qg.placements[ax].is_shard(2):
+        return qg
+    pl = list(qg.placements)
+    pl[ax] = Replicate()
+    return qg.redistribute(placements=pl)
+
+
+def _merge(t, shape):
+    """``t`` with its head dims merged into ``shape``. In the dry run the
+    merged tensor is re-laid out as it is (a no-op forward) so that its
+    gradient, arriving sharded over the merged dim, is laid out as ``t``'s
+    before the backward unflattens it."""
+    out = t.reshape(shape)
+    if is_dtensor(out):
+        out = out.redistribute(placements=out.placements)
+    return out
+
+
+def _even_heads(t, dim: int, heads: int):
+    """A head view's DTensor with each dim sharded where ``heads`` would
+    split unevenly (8 KV heads on a 16-way axis) replicated there first,
+    which GSPMD does silently and DTensor refuses to."""
+    from torch.distributed.tensor import Replicate
+    pl = list(t.placements)
+    for i, p in enumerate(pl):
+        if p.is_shard(dim) and heads % t.device_mesh.size(i):
+            pl[i] = Replicate()
+    return t.redistribute(placements=pl) if pl != list(t.placements) else t
 
 
 def _pick_chunk(n: int, target: int) -> int:
@@ -170,16 +221,47 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0, softcap=None,
     B, Sq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = (q * (scale if scale is not None else D ** -0.5)).reshape(
-        B, Sq, Hkv, G, D)
+    qg = _split(q * (scale if scale is not None else D ** -0.5), 2, (Hkv, G))
     use_flash = force_flash if force_flash is not None else (
         Sq * Tk > 4096 * 2048)
-    if use_flash:
-        o = _FlashAttention.apply(qg, k, v, q_pos, k_pos, window, softcap,
-                                  q_chunk, kv_chunk)
+
+    def attend(qg, k, v, q_pos, k_pos):
+        if use_flash:
+            return _FlashAttention.apply(qg, k, v, q_pos, k_pos, window,
+                                         softcap, q_chunk, kv_chunk)
+        return _direct(qg, k, v, q_pos, k_pos, window, softcap)
+
+    if FLASH_KV_SPEC is not None:
+        o = _local(attend, qg, k, v, q_pos, k_pos)
     else:
-        o = _direct(qg, k, v, q_pos, k_pos, window, softcap)
-    return o.reshape(B, Sq, Hq, D)
+        if is_dtensor(k) and is_dtensor(qg):
+            qg = _meet_keys(qg, k)
+        o = attend(qg, k, v, q_pos, k_pos)
+    return _merge(o, (B, Sq, Hq, D))
+
+
+def _local(attend, qg, k, v, q_pos, k_pos):
+    """The dry run's prefill/train attention: queries, keys and values laid
+    out by ``FLASH_KV_SPEC`` (batch on ``data``, heads on ``model``), the
+    positions by its batch part, and ``attend`` run on each rank's shards
+    (``local_map``): attention is independent per (row, head), so no
+    collective runs inside it and no chunk re-gathers a sharded dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k.device_mesh
+    pos_pl = tuple(p if p.is_shard(0) else Replicate()
+                   for p in FLASH_KV_SPEC)
+
+    def placed(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(placements=pos_pl)
+
+    fn = local_map(attend, out_placements=list(FLASH_KV_SPEC),
+                   in_placements=(FLASH_KV_SPEC,) * 3 + (pos_pl,) * 2,
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(qg, k, v, placed(q_pos), placed(k_pos))
 
 
 # ======================================================================
@@ -289,6 +371,8 @@ def _update_global(cache, k, v, q_pos, inplace: bool = True):
     returned as a new ``{"k", "v", "kpos"}``."""
     B, S = q_pos.shape
     T = cache["k"].shape[1]
+    if inplace and is_dtensor(cache["k"]):
+        return _update_sharded(cache, k, v, q_pos)
     start = torch.clamp(q_pos[:, :1].long(), 0, T - S)
     rows = start + torch.arange(S, device=q_pos.device)
     idx = (torch.arange(B, device=rows.device)[:, None].expand(B, S), rows)
@@ -299,6 +383,27 @@ def _update_global(cache, k, v, q_pos, inplace: bool = True):
     cache["k"].index_put_(idx, k)
     cache["v"].index_put_(idx, v)
     cache["kpos"].index_put_(idx, q_pos)
+    return cache
+
+
+def _update_sharded(cache, k, v, q_pos):
+    """``_update_global`` in place on DTensors (the dry run), where an
+    indexed write into a sharded dim has no sharding rule: a prefill that
+    fills the whole cache is a copy, a one-token decode a masked select
+    (the slot of each row's clamped position), both elementwise."""
+    T, S = cache["k"].shape[1], q_pos.shape[1]
+    new = {"k": k, "v": v, "kpos": q_pos}
+    if S == 1:
+        slot = torch.arange(T, device=q_pos.device)[None] == torch.clamp(
+            q_pos.long(), 0, T - 1)                                # (B, T)
+        new = {key: torch.where(slot[..., None] if val.dim() == 3 else slot,
+                                val, cache[key])
+               for key, val in new.items()}
+    elif S != T:
+        raise NotImplementedError(
+            "a sharded cache takes whole-cache prefills and one-token decodes")
+    for key, val in new.items():
+        cache[key].copy_(val)
     return cache
 
 
@@ -326,11 +431,10 @@ def _update_window(cache, k, v, q_pos, inplace: bool = True):
 def project_qkv(p, x, cfg, q_pos):
     """q/k/v projections, optional qk-norm and rope. x: (B, S, d);
     q_pos: (B, S). Returns q (B,S,Hq,D), k and v (B,S,Hkv,D)."""
-    B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, hq, hd)
-    k = (x @ p["wk"]).reshape(B, S, hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, hkv, hd)
+    q = _split(x @ p["wq"], 2, (hq, hd))
+    k = _split(x @ p["wk"], 2, (hkv, hd))
+    v = _split(x @ p["wv"], 2, (hkv, hd))
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -358,15 +462,15 @@ def _cross_apply(p, q, cfg, cache, enc_out, inplace: bool = True):
             cache["v"].copy_(vf)
     else:
         kf, vf = cache["k"], cache["v"]
-    k = kf.reshape(B, -1, hkv, hd)
-    v = vf.reshape(B, -1, hkv, hd)
+    k = _split(kf, 2, (hkv, hd))
+    v = _split(vf, 2, (hkv, hd))
     tk = k.shape[1]
     q_pos = torch.full((B, S), torch.iinfo(torch.int32).max,
                        dtype=torch.int32, device=q.device)
     k_pos = torch.arange(tk, dtype=torch.int32,
                          device=q.device)[None].expand(B, tk)
     o = attention(q, k, v, q_pos, k_pos)
-    return o.reshape(B, S, hq * hd) @ p["wo"], cache
+    return _merge(o, (B, S, hq * hd)) @ p["wo"], cache
 
 
 def attn_apply(p, x, cfg, kind=ATTN, *, cache=None, pos=None, enc_out=None,
@@ -385,7 +489,7 @@ def attn_apply(p, x, cfg, kind=ATTN, *, cache=None, pos=None, enc_out=None,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == LOCAL_ATTN else 0
     if cross:
-        q = (x @ p["wq"]).reshape(B, S, hq, hd)
+        q = _split(x @ p["wq"], 2, (hq, hd))
         return _cross_apply(p, q, cfg, cache, enc_out, inplace)
     if pos is None:
         pos = torch.zeros((B,), dtype=torch.int32, device=x.device)
@@ -409,8 +513,7 @@ def attn_apply(p, x, cfg, kind=ATTN, *, cache=None, pos=None, enc_out=None,
             cache = _update_window(cache, kf, vf, q_pos, inplace)
         else:
             cache = _update_global(cache, kf, vf, q_pos, inplace)
-        t = cache["k"].shape[1]
-        o = attention(q, cache["k"].reshape(B, t, hkv, hd),
-                      cache["v"].reshape(B, t, hkv, hd), q_pos, cache["kpos"],
+        o = attention(q, _split(cache["k"], 2, (hkv, hd)),
+                      _split(cache["v"], 2, (hkv, hd)), q_pos, cache["kpos"],
                       window=window, softcap=cfg.attn_softcap)
-    return o.reshape(B, S, hq * hd) @ p["wo"], cache
+    return _merge(o, (B, S, hq * hd)) @ p["wo"], cache

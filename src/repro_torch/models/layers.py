@@ -13,6 +13,15 @@ import torch
 import torch.nn.functional as F
 
 
+def is_dtensor(t) -> bool:
+    """True for the dry run's sharded tensors (DTensors). Serving and
+    training pass plain tensors and pay one type check."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def bcast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """View a per-feature weight for broadcasting against ``x``: an
     unstacked ``(F,)`` weight as is, a stacked ``(M, F)`` weight as

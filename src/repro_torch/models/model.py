@@ -34,11 +34,62 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.layers import (embed_lookup, mlp_apply, rmsnorm,
-                                       unembed)
+from repro_torch.models.layers import (embed_lookup, is_dtensor, mlp_apply,
+                                       rmsnorm, unembed)
 from repro_torch.params import tree_leaves, tree_map
 
 _KINDS = (ATTN, LOCAL_ATTN, RGLRU, SSD)
+
+#: Sharding hook of the dry run (``launch/steps.py`` sets it): DTensor
+#: placements that every layer's input, the (B, S, D) residual stream, is
+#: redistributed to, as the reference's ``ACTIVATION_SPEC`` pins it with
+#: ``with_sharding_constraint``. None (serving, training): nothing is done.
+ACTIVATION_SPEC = None
+
+
+def _constrain(x):
+    if ACTIVATION_SPEC is not None and x.dim() == 3:
+        return x.redistribute(placements=ACTIVATION_SPEC)
+    return x
+
+
+def _gather_seq(h):
+    """A normed (B, S, D) input of the projections with its sequence
+    gathered (Megatron sequence parallelism: the residual stream stays
+    sequence-sharded, the column-parallel products take whole rows)."""
+    if ACTIVATION_SPEC is None or h.dim() != 3:
+        return h
+    from torch.distributed.tensor import Replicate
+    return h.redistribute(placements=[Replicate() if p.is_shard(1) else p
+                                      for p in h.placements])
+
+
+def _gathered(tree):
+    """The dry run's FSDP: a layer's weights (or a table) with their
+    ``data``-axis shards all-gathered just before use, tensor-parallel
+    shards kept; the backward reduce-scatters the gradients. Without the
+    hook: the tree as it is."""
+    if ACTIVATION_SPEC is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    def one(t):
+        names = t.device_mesh.mesh_dim_names
+        pl = [Replicate() if names[i] in ("pod", "data") else p
+              for i, p in enumerate(t.placements)]
+        return t if pl == list(t.placements) else t.redistribute(
+            placements=pl)
+    return tree_map(one, tree)
+
+
+def _whole_layers(t):
+    """A stacked leaf with its layer axis gathered where a rule sharded it
+    (the dry run's DTensors): no rule may select a layer out of a shard."""
+    if not is_dtensor(t) or not any(p.is_shard(0) for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(placements=[Replicate() if p.is_shard(0) else p
+                                      for p in t.placements])
 
 
 def _group_structure(cfg: ModelConfig):
@@ -77,15 +128,19 @@ class _Init:
     reference's weights across with ``repro_torch.params.params_from_numpy``.
     With several seeds every leaf gets a leading model axis, filled model by
     model (and layer by layer) so no full-size fp32 temporary is ever
-    made."""
+    made. With ``draw=False`` no number is drawn or written: every leaf is
+    an empty tensor of its shape and dtype (on the meta device, the
+    counterpart of ``jax.eval_shape(init_params)``)."""
 
-    def __init__(self, seeds, device, dtype, stacked: bool):
+    def __init__(self, seeds, device, dtype, stacked: bool,
+                 draw: bool = True):
         self.gens = [torch.Generator(device=device).manual_seed(int(s))
-                     for s in seeds]
+                     for s in seeds] if draw else []
+        self.n = len(seeds)
         self.device, self.dtype, self.stacked = device, dtype, stacked
 
     def _fill(self, shape, fn, layers: int = 0, dtype=None):
-        lead = (len(self.gens),) if self.stacked else ()
+        lead = (self.n,) if self.stacked else ()
         shape = ((layers,) if layers else ()) + tuple(shape)
         out = torch.empty(lead + shape, dtype=dtype or self.dtype,
                           device=self.device)
@@ -175,6 +230,13 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
     return _init_tree(cfg, _Init([seed], dev, torch_dtype(cfg.dtype), False))
 
 
+def param_shapes(cfg: ModelConfig):
+    """``init_params``' tree with no number drawn: every leaf an empty
+    tensor on the meta device, of the leaf's shape and dtype."""
+    return _init_tree(cfg, _Init([0], torch.device("meta"),
+                                 torch_dtype(cfg.dtype), False, draw=False))
+
+
 def init_stacked_params(cfg: ModelConfig, seeds, device=None):
     """``init_params`` for several models at once, every leaf stacked on a
     leading model axis: leaf ``[m]`` equals ``init_params(cfg, seeds[m])``'s.
@@ -234,7 +296,7 @@ def _layer_slice(tree, layer: int, axis: int):
         return {k: _layer_slice(v, layer, axis) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return type(tree)(*(_layer_slice(v, layer, axis) for v in tree))
-    return tree.select(axis, layer)
+    return _whole_layers(tree).select(axis, layer)
 
 
 def _cache_slice(cache, layer: int):
@@ -258,7 +320,9 @@ def _apply_layer(lp, x, cfg, kind, cache, pos, enc_out=None,
     """One layer. Returns (x, MoE aux or {}, cache): the cache updated in
     place, or with ``inplace=False`` (the functional path) a new layer
     cache dict of new tensors, nothing written."""
-    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    lp = _gathered(lp)
+    x = _constrain(x)
+    h = _gather_seq(rmsnorm(x, lp["norm1"], cfg.norm_eps))
     aux = {}
     if kind in (ATTN, LOCAL_ATTN):
         out, c = attn_mod.attn_apply(lp["attn"], h, cfg, kind, cache=cache,
@@ -273,24 +337,24 @@ def _apply_layer(lp, x, cfg, kind, cache, pos, enc_out=None,
         cache = {**cache, **c}
     elif cache is not None and kind in (RGLRU, SSD):
         _store(cache, c)
-    x = x + out
+    x = x + _constrain(out)       # explicit: its backward gathers, too
     if "cross" in lp:
         # prefill (enc_out given) writes the cross cache, decode reads it
-        hx = rmsnorm(x, lp["norm_x"], cfg.norm_eps)
+        hx = _gather_seq(rmsnorm(x, lp["norm_x"], cfg.norm_eps))
         out, cc = attn_mod.attn_apply(
             lp["cross"], hx, cfg, ATTN, enc_out=enc_out, cross=True,
             cache=cache.get("cross") if cache is not None else None,
             inplace=inplace)
-        x = x + out
+        x = x + _constrain(out)
         if cache is not None and not inplace:
             cache["cross"] = cc
     if "norm2" in lp:
-        h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        h2 = _gather_seq(rmsnorm(x, lp["norm2"], cfg.norm_eps))
         if "moe" in lp:
             out2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg)
         else:
             out2 = mlp_apply(lp["mlp"], h2)
-        x = x + out2
+        x = x + _constrain(out2)
     return x, aux, cache
 
 
@@ -326,7 +390,7 @@ def _unbind(tree, n: int) -> list:
     if isinstance(tree, dict):
         parts = {k: _unbind(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(tree.unbind(0))
+    return list(_whole_layers(tree).unbind(0))
 
 
 def _add_aux(aux, ax) -> None:
@@ -415,13 +479,15 @@ def encode(cfg: ModelConfig, params, embeds):
     frontend is a stub): (B, T, D) -> (B, T, D)."""
     x = embeds.to(torch_dtype(cfg.dtype))
     enc = params["encoder"]
-    for lp in _unbind(enc["groups"], cfg.encoder_layers):
-        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    for lp in map(_gathered, _unbind(enc["groups"], cfg.encoder_layers)):
+        x = _constrain(x)
+        h = _gather_seq(rmsnorm(x, lp["norm1"], cfg.norm_eps))
         # bidirectional: all positions valid for all queries
         out, _ = attn_mod.attn_apply(lp["attn"], h, cfg, ATTN, causal=False)
-        x = x + out
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
-    return rmsnorm(x, enc["norm"], cfg.norm_eps)
+        x = x + _constrain(out)
+        x = x + _constrain(mlp_apply(lp["mlp"], _gather_seq(
+            rmsnorm(x, lp["norm2"], cfg.norm_eps))))
+    return _gather_seq(rmsnorm(x, enc["norm"], cfg.norm_eps))
 
 
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
@@ -449,12 +515,13 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
     dtype = torch_dtype(cfg.dtype)
     if cfg.input_mode == "mixed" and prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype),
-                       _embed(cfg, params["embed"], tokens)], dim=1)
+                       _embed(cfg, _gathered(params["embed"]), tokens)],
+                      dim=1)
     elif cfg.input_mode == "embeds" and prefix_embeds is not None \
             and not cfg.is_encdec:
         x = prefix_embeds.to(dtype)
     else:
-        x = _embed(cfg, params["embed"], tokens)
+        x = _embed(cfg, _gathered(params["embed"]), tokens)
     if pos is None:
         pos = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
     if recording(params, cache, prefix_embeds, enc_out):
@@ -465,8 +532,8 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, pos=None,
         for (lp, lc), kind in zip(_layers(cfg, params, cache), _kinds(cfg)):
             x, ax, _ = _apply_layer(lp, x, cfg, kind, lc, pos, enc_out)
             _add_aux(aux, ax)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    table = params.get("unembed", params["embed"])
+    x = _gather_seq(rmsnorm(x, params["final_norm"], cfg.norm_eps))
+    table = _gathered(params.get("unembed", params["embed"]))
     if logits == "hidden":
         out = x
     elif logits == "all":
@@ -545,8 +612,25 @@ def _chunk_nll(h, table, t, m, softcap):
     ``torch.utils.checkpoint`` the (B, c, V) logits are recomputed in the
     backward, never kept."""
     logits = unembed(h, table, softcap)                        # (B,c,V) f32
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, t.long()[..., None])[..., 0]
+    if not is_dtensor(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, t.long()[..., None])[..., 0]
+    else:
+        # the dry run's vocab-sharded logits, reduced over the vocab with
+        # (B, c) all-reduces, never gathered: logsumexp by its max and
+        # sum, the target's logit by a masked sum (one term, the rest exact
+        # zeros; DTensor cannot reduce a gather's masked partial here)
+        from torch.distributed.tensor import Replicate
+
+        def whole(x):             # a vocab reduction's partials, summed
+            return x.redistribute(placements=[
+                Replicate() if p.is_partial() else p for p in x.placements])
+        mx = whole(logits.detach().amax(-1, keepdim=True))
+        lse = (mx + torch.log(whole(torch.exp(logits - mx).sum(
+            -1, keepdim=True))))[..., 0]
+        hit = torch.arange(logits.shape[-1], device=t.device) == \
+            t.long()[..., None]
+        picked = whole(torch.where(hit, logits, 0.0).sum(-1))
     return ((lse - picked) * m).sum(), m.sum()
 
 
@@ -566,7 +650,7 @@ def train_loss(cfg: ModelConfig, params, tokens, targets, mask, *,
                              enc_out=enc_out, logits="hidden", remat=remat)
     if cfg.input_mode == "mixed" and prefix_embeds is not None:
         hidden = hidden[:, prefix_embeds.shape[1]:]
-    table = params.get("unembed", params["embed"])
+    table = _gathered(params.get("unembed", params["embed"]))
     S = hidden.shape[1]
     c = ce_chunk
     while S % c:

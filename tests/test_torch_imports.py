@@ -91,17 +91,43 @@ print(" ".join(names))
             "repro_torch.serving.workload",
             "repro_torch.serving.backpressure",
             "repro_torch.launch.serve",
-            "repro_torch.launch.analytic"} <= visited
+            "repro_torch.launch.analytic",
+            "repro_torch.analysis",
+            "repro_torch.analysis.__main__",
+            "repro_torch.analysis.baseline",
+            "repro_torch.analysis.cli",
+            "repro_torch.analysis.core",
+            "repro_torch.analysis.rules",
+            "repro_torch.launch.steps",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding",
+            "repro_torch.launch.commanalysis",
+            "repro_torch.launch.dryrun"} <= visited
 
 
 #: names a reference package exports that its port does not, with the
 #: reason: the pool is updated in place, so the sanitizer's donation-
-#: poisoning pool wrapper has nothing to wrap
-NOT_EXPORTED = {"repro.kvcache": {"SanitizedKVPool"}}
-#: the reference's packages with an ``__init__`` of exports, and the port's
-#: counterpart of each (``repro.analysis`` is not ported yet)
+#: poisoning pool wrapper has nothing to wrap; ``steps`` imports
+#: ``apply_updates`` for its train step, which the port's reaches through
+#: ``Trainer.step``; ``NamedSharding`` and ``P`` are jax's sharding types
+#: (the port's specs are tuples of axis names, its placements DTensor
+#: ``Placement``s); ``analyze`` parses HLO text, which torch does not have
+NOT_EXPORTED = {"repro.kvcache": {"SanitizedKVPool"},
+                "repro.launch.steps": {"apply_updates"},
+                "repro.launch.sharding": {"NamedSharding", "P"},
+                "repro.launch.hloanalysis": {"analyze"}}
+#: the reference's packages with an ``__init__`` of exports, and its launch
+#: modules of the sharded tools; each is held against the port's module of
+#: the same name, but for ``COUNTERPART``
 PACKAGES = ["configs", "core", "kernels", "kvcache", "models", "serving",
-            "serving.scheduler", "training"]
+            "serving.scheduler", "training", "analysis", "launch.steps",
+            "launch.mesh", "launch.sharding", "launch.dryrun",
+            "launch.hloanalysis"]
+#: torch has no HLO: ``launch.commanalysis`` records the collectives a step
+#: issues as it runs (a ``TorchDispatchMode``) where ``launch.hloanalysis``
+#: parses them out of compiled HLO text; both return ``collective_bytes``'
+#: ``{"by_op", "counts", "total", "loops"}`` with the same byte semantics
+COUNTERPART = {"launch.hloanalysis": "launch.commanalysis"}
 
 
 def _exports(module) -> set:
@@ -112,10 +138,25 @@ def _exports(module) -> set:
     return set(names)
 
 
+def _reference(pkg):
+    """The reference module. Importing ``repro.launch.dryrun`` sets
+    ``XLA_FLAGS`` to 512 host devices, which must not reach the jax tests
+    this worker runs later: the variable is put back."""
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.{pkg}")
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
+
+
 @pytest.mark.parametrize("pkg", PACKAGES)
 def test_port_exports_what_the_reference_exports(pkg):
-    ref = importlib.import_module(f"repro.{pkg}")
-    port = importlib.import_module(f"repro_torch.{pkg}")
+    ref = _reference(pkg)
+    port = importlib.import_module(
+        f"repro_torch.{COUNTERPART.get(pkg, pkg)}")
     missing = _exports(ref) - set(vars(port)) \
         - NOT_EXPORTED.get(f"repro.{pkg}", set())
     assert not missing, f"repro_torch.{pkg} lacks {sorted(missing)}"
