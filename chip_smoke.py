@@ -188,6 +188,17 @@ Phases, in order; any failure exits non-zero (nothing is caught):
      runs (fake tensors, host only) run in a process started before phase
      1. After phase 4: one row's bf16 logits through the fused decode step
      at batch widths 1, 2, 4 and 8 (printed, not asserted).
+  20. (after phase 4, on its engine) the reference's request-id surface:
+     one request per decode model over phase 4's shared context plus a
+     32-token tail through ``submit`` on a caller-managed session, then
+     ``run``; then ``generate`` of the same prompt on the same session
+     (the same pages: no recompute) and ``run``. ``result(rid)`` equals
+     ``generate(...).result()``, ``pop_result`` releases the entry and a
+     second ``pop_result`` raises; both warn as deprecated; the launch
+     counters of ``paged_write``, ``paged_decode`` and
+     ``flash_prefill_paged`` zeroed just before and read just after. In
+     phase 13, on mamba2-780m's engine: ``invoke`` equals
+     ``generate(...).result()`` over a fresh 1000-token context.
 The last two lines are the card's nvidia-smi name/power line and
 ``{"ok": true, "device": {...}}``. It needs the repository's ``src/``
 beside it and a CUDA card; without either it prints no result and exits 1.
@@ -2335,6 +2346,8 @@ def phase_dense(card, n_layers: int | None):
         s = eng.stats()
         assert s["prefill_tokens_reused"] > 0, s
         assert all(n == 0 for n in launches.values()), launches
+        if name == "mamba2-780m":
+            dense_invoke(card, eng, cfg)
         w = eng.prefill_workers[0]
         # the B=1 decode loop alone, timed over a copy of the session cache
         sc = w.sessions[0]
@@ -3486,6 +3499,129 @@ def phase_bf16_width(card, eager):
 
 
 # ======================================================================
+# phase 20: the request-id surface (submit / invoke / result / pop_result)
+
+
+#: phase 20's caller-managed sessions, one per decode model, and the greedy
+#: tokens of each request
+REQUEST_ID_SIDS = {"m0": 101, "m1": 102}
+REQUEST_ID_GEN = 32
+
+
+def deprecated(fn, *args, **kw):
+    """``fn(*args, **kw)``, asserting that it warned as deprecated."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out = fn(*args, **kw)
+    assert any(issubclass(w.category, DeprecationWarning)
+               and "is deprecated" in str(w.message) for w in seen), seen
+    return out
+
+
+def phase_request_ids(card, eager):
+    """Phase 20 (after phase 4, on its engine): ``submit`` of one request
+    per decode model over phase 4's shared context plus a 32-token tail,
+    each on a session of its own, then ``run``; then ``generate`` of the
+    same prompts on the same sessions (the sibling path: the same pages, so
+    both decode over bit-identical context K/V in batches of the same
+    shape) and ``run``. The tokens must be equal; ``result`` keeps the
+    entry, ``pop_result`` releases it, a second pop raises."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.main_path import PROMPT_TOKENS, TAIL_TOKENS, tokens
+    from repro_torch.serving import SamplingParams
+
+    eng, cfg = eager["engine"], eager["cfg"]
+    # phase 4's shared context (cached in the prefix tree), new tails
+    prompt = tokens(cfg, np.random.default_rng(0), PROMPT_TOKENS)
+    rng = np.random.default_rng(20)
+    prompts = {m: prompt + tokens(cfg, rng, TAIL_TOKENS)
+               for m in REQUEST_ID_SIDS}
+    free0 = eng.block_pool.free_count
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    disp0 = eng.stats.decode_dispatches
+    t0 = time.perf_counter()
+    rids = {m: deprecated(eng.submit, sid, prompts[m], m,
+                          gen_tokens=REQUEST_ID_GEN)
+            for m, sid in REQUEST_ID_SIDS.items()}
+    eng.run()
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter() - t0
+    outs = {m: eng.generate(m, prompts[m],
+                            SamplingParams(max_tokens=REQUEST_ID_GEN),
+                            session=sid)
+            for m, sid in REQUEST_ID_SIDS.items()}
+    eng.run()
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    dispatches = eng.stats.decode_dispatches - disp0
+    for m, rid in rids.items():
+        got = eng.result(rid)
+        assert got is eng.result(rid)                 # not consumed
+        want = np.asarray(outs[m].result(), np.int32)
+        assert len(got) == REQUEST_ID_GEN, (m, got)
+        assert np.array_equal(got, want), (m, got, want)
+        assert np.array_equal(eng.pop_result(rid), want)
+        assert rid not in eng._results
+        try:
+            eng.pop_result(rid)
+        except KeyError as e:
+            assert "already fetched" in str(e), e
+        else:
+            raise AssertionError(f"a second pop_result({rid}) returned")
+    for sid in REQUEST_ID_SIDS.values():
+        eng.end_session(sid)
+    assert eng.block_pool.free_count == free0, (eng.block_pool.free_count,
+                                                free0)
+    eng.block_pool.check_invariants()
+    assert launches["paged_write"] > 0, launches
+    assert launches["paged_decode"] == cfg.n_layers * dispatches, (
+        launches, dispatches)
+    assert launches["flash_prefill_paged"] == 0, launches   # eager prefill
+    log(f"[request ids] submit/run/result over the shared context: "
+        f"{len(rids)} requests x {REQUEST_ID_GEN} tokens in {t_submit:.3f} s, "
+        f"tokens == generate(...).result() on the same sessions; "
+        f"pop_result released each entry, a second pop raised; launches "
+        f"{launches} over {dispatches} decode dispatches on {card}")
+
+
+def dense_invoke(card, eng, cfg):
+    """Phase 20 on phase 13's mamba2-780m engine: ``invoke`` over a fresh
+    1000-token context on a caller-managed session, then
+    ``generate(...).result()`` of the same context in a one-shot session:
+    the same tokens (both prefill it from scratch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.main_path import PROMPT_TOKENS, tokens
+    from repro_torch.serving import SamplingParams
+
+    ctx = tokens(cfg, np.random.default_rng(21), PROMPT_TOKENS)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = deprecated(eng.invoke, 1, ctx, "m0", gen_tokens=REQUEST_ID_GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want = eng.generate("m0", ctx, SamplingParams(
+        max_tokens=REQUEST_ID_GEN)).result()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    eng.end_session(1)
+    assert len(got) == REQUEST_ID_GEN, got
+    assert np.array_equal(got, np.asarray(want, np.int32)), (got, want)
+    assert all(n == 0 for n in launches.values()), launches
+    log(f"[request ids] {cfg.name} dense fallback: invoke == "
+        f"generate(...).result(), {len(got)} tokens ({len(set(got.tolist()))} "
+        f"distinct), invoke {dt:.3f} s; launches {launches} (the dense "
+        f"fallback runs no kernel) on {card}")
+
+
+# ======================================================================
 
 
 def main() -> int:
@@ -3526,6 +3662,7 @@ def run_phases(torch, n_layers, t_start, tracers) -> int:
     phase_toy_engine()
     eager_launches, eager = phase_main_path(card, n_layers)
     phase_bf16_width(card, eager)
+    phase_request_ids(card, eager)
     api_launches = phase_kernel_api(card, eager)
     phase_sampled(card, eager)
     chunked_launches = phase_chunked(card, eager)

@@ -86,6 +86,9 @@ class HostSwapPool:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def bids(self, rid):
+        return self._entries[rid]["bids"]
+
     def entry_pages(self, rid) -> int:
         return len(self._entries[rid]["bids"])
 

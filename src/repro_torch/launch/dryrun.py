@@ -20,6 +20,7 @@ Usage:
   python -m repro_torch.launch.dryrun                    # all combos, (32, 8)
   python -m repro_torch.launch.dryrun --multi-pod        # all combos, (2, 32, 8)
   python -m repro_torch.launch.dryrun --arch gemma2-27b --shape decode_32k
+  python -m repro_torch.launch.dryrun --single-device --out F   # one device
 """
 from __future__ import annotations
 
@@ -110,10 +111,14 @@ def trace(cfg, shape_name: str, mesh=None) -> dict:
             "lower_s": round(time.perf_counter() - t0, 1)}
 
 
-def run_one(arch: str, shape: str, multi_pod: bool) -> dict:
-    mesh = make_production_mesh(multi_pod=multi_pod)
+def run_one(arch: str, shape: str, multi_pod: bool,
+            single: bool = False) -> dict:
+    """One combo's record on a production mesh, or on one device (mesh
+    "1") with ``single``."""
+    mesh = None if single else make_production_mesh(multi_pod=multi_pod)
     rec = {"arch": arch, "shape": shape,
-           "mesh": "x".join(map(str, mesh.shape)), "chips": mesh.size()}
+           "mesh": "1" if single else "x".join(map(str, mesh.shape)),
+           "chips": 1 if single else mesh.size()}
     rec.update(trace(get_config(arch), shape, mesh))
     return rec
 
@@ -139,6 +144,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--single-device", action="store_true",
+                    help="trace on one device (mesh \"1\"), the figures a "
+                         "sharded record's flops x chips must cover")
     ap.add_argument("--out", default="results/torch_dryrun.jsonl")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
@@ -158,7 +166,8 @@ def main(argv=None) -> int:
                 if "error" not in r:
                     done.add((r["arch"], r["shape"], r["mesh"]))
 
-    mesh_tag = "2x32x8" if args.multi_pod else "32x8"
+    mesh_tag = "1" if args.single_device else \
+        "2x32x8" if args.multi_pod else "32x8"
     n_ok = n_skip = n_fail = 0
     with open(args.out, "a") as f:
         for arch, shape, skip in combos(archs, shapes):
@@ -175,7 +184,8 @@ def main(argv=None) -> int:
                 continue
             print(f"[dryrun] {arch} x {shape} x {mesh_tag} ...", flush=True)
             try:
-                rec = run_one(arch, shape, args.multi_pod)
+                rec = run_one(arch, shape, args.multi_pod,
+                              args.single_device)
                 n_ok += 1
                 print(f"  ok: trace {rec['lower_s']}s args/device "
                       f"{rec['memory']['argument_size_in_bytes'] / 1e9:.2f}GB "

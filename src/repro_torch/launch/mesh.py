@@ -48,12 +48,17 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh(*PRODUCTION_SHAPES[multi_pod])
 
 
-def make_host_mesh(model: int = 1, n: int | None = None):
+def make_host_mesh(model: int = 1, n: int | None = None, pod: int = 1):
     """A ``(n // model, model)`` ``("data", "model")`` mesh over ``n`` fake
-    ranks: the process group's size if one exists, else 1 (CPU tests)."""
+    ranks: the process group's size if one exists, else 1 (CPU tests).
+    ``pod > 1`` adds a leading ``pod`` axis, as on the multi-pod production
+    mesh: ``(pod, n // (pod * model), model)``."""
     if n is None:
         import torch.distributed as dist
         n = dist.get_world_size() if dist.is_initialized() else 1
+    if pod > 1:
+        return _mesh((pod, n // (pod * model), model),
+                     ("pod", "data", "model"))
     return _mesh((n // model, model), ("data", "model"))
 
 

@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import ATTN, LOCAL_ATTN
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
 from repro_torch.kernels.paged_decode import paged_decode_attention
-from repro_torch.models.layers import is_dtensor, rmsnorm
+from repro_torch.models.layers import is_dtensor, pin_grad, rmsnorm
 from repro_torch.models.rope import apply_rope
 
 _NEG = -1e30
@@ -68,10 +68,7 @@ def _merge(t, shape):
     merged tensor is re-laid out as it is (a no-op forward) so that its
     gradient, arriving sharded over the merged dim, is laid out as ``t``'s
     before the backward unflattens it."""
-    out = t.reshape(shape)
-    if is_dtensor(out):
-        out = out.redistribute(placements=out.placements)
-    return out
+    return pin_grad(t.reshape(shape))
 
 
 def _even_heads(t, dim: int, heads: int):

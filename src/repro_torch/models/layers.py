@@ -22,6 +22,19 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def pin_grad(t):
+    """The dry run's DTensor ``t`` re-laid out as it is: a no-op forward
+    whose backward lays the gradient out as ``t`` (a partial sum's as
+    replicated) before it reaches the op that made ``t``. A product of a
+    (B, S, F) activation flattens (B, S) in its backward; a gradient that
+    arrives with S sharded on ``model`` while the data axes shard B would
+    give the flattened dim three mesh shards, which DTensor's ``mm`` rule
+    refuses. A plain tensor is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    return t.redistribute(placements=t.placements)
+
+
 def bcast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """View a per-feature weight for broadcasting against ``x``: an
     unstacked ``(F,)`` weight as is, a stacked ``(M, F)`` weight as

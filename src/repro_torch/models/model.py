@@ -35,7 +35,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (embed_lookup, is_dtensor, mlp_apply,
-                                       rmsnorm, unembed)
+                                       pin_grad, rmsnorm, unembed)
 from repro_torch.params import tree_leaves, tree_map
 
 _KINDS = (ATTN, LOCAL_ATTN, RGLRU, SSD)
@@ -611,26 +611,44 @@ def _chunk_nll(h, table, t, m, softcap):
     """One CE chunk: (sum of masked NLL, sum of the mask); under
     ``torch.utils.checkpoint`` the (B, c, V) logits are recomputed in the
     backward, never kept."""
+    if is_dtensor(h):
+        return _sharded_chunk_nll(h, table, t, m, softcap)
     logits = unembed(h, table, softcap)                        # (B,c,V) f32
-    if not is_dtensor(logits):
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, t.long()[..., None])[..., 0]
-    else:
-        # the dry run's vocab-sharded logits, reduced over the vocab with
-        # (B, c) all-reduces, never gathered: logsumexp by its max and
-        # sum, the target's logit by a masked sum (one term, the rest exact
-        # zeros; DTensor cannot reduce a gather's masked partial here)
-        from torch.distributed.tensor import Replicate
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, t.long()[..., None])[..., 0]
+    return ((lse - picked) * m).sum(), m.sum()
 
-        def whole(x):             # a vocab reduction's partials, summed
-            return x.redistribute(placements=[
-                Replicate() if p.is_partial() else p for p in x.placements])
-        mx = whole(logits.detach().amax(-1, keepdim=True))
-        lse = (mx + torch.log(whole(torch.exp(logits - mx).sum(
-            -1, keepdim=True))))[..., 0]
-        hit = torch.arange(logits.shape[-1], device=t.device) == \
-            t.long()[..., None]
-        picked = whole(torch.where(hit, logits, 0.0).sum(-1))
+
+def _sharded_chunk_nll(h, table, t, m, softcap):
+    """``_chunk_nll`` on the dry run's DTensors. The chunk's rows ``h`` are
+    batch-only (``forward`` gathered the sequence) and meet the table's
+    ``model`` shard: a table sharded on its features (a vocabulary the
+    axis does not divide) takes ``h``'s features sliced alike, so the
+    logits are partial sums and no product is repeated on every rank. The
+    logits keep their forward layout in the backward too (``pin_grad``):
+    the unembedding's products flatten (B, c), and a gradient sharded on c
+    by ``model`` would give that dim three mesh shards on a (pod, data,
+    model) mesh. Reduced over the vocab with (B, c) all-reduces, never
+    gathered: logsumexp by its max and sum, the target's logit by a masked
+    sum (one term, the rest exact zeros; DTensor cannot reduce a gather's
+    masked partial here)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ax = table.device_mesh.mesh_dim_names.index("model")
+    if table.placements[ax] == Shard(1):
+        pl = list(h.placements)
+        pl[ax] = Shard(2)
+        h = h.redistribute(placements=pl)
+    logits = pin_grad(unembed(h, table, softcap))              # (B,c,V) f32
+
+    def whole(x):             # a vocab reduction's partials, summed
+        return x.redistribute(placements=[
+            Replicate() if p.is_partial() else p for p in x.placements])
+    mx = whole(logits.detach().amax(-1, keepdim=True))
+    lse = (mx + torch.log(whole(torch.exp(logits - mx).sum(
+        -1, keepdim=True))))[..., 0]
+    hit = torch.arange(logits.shape[-1], device=t.device) == \
+        t.long()[..., None]
+    picked = whole(torch.where(hit, logits, 0.0).sum(-1))
     return ((lse - picked) * m).sum(), m.sum()
 
 

@@ -14,6 +14,10 @@ with no routed token computes on zero rows. At the decode step (S = 1, so
 C = 1 and nothing is ever dropped) that reads every expert's weights once
 per layer, which is what the fused decode plane does.
 
+In the sharded dry run the routing runs on each rank's local batch rows
+(``local_map``) while the expert products stay DTensor operations on the
+experts' own shards.
+
 Weights may carry a leading model axis M (the fused decode plane's stacked
 decoders): then ``x`` is ``(M, B, S, D)``. A LoRA group's lanes stack only
 the adapted ``wo`` on M; the other expert weights are the base's, with no
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import is_dtensor, pin_grad
 
 
 def moe_init(ini, cfg, layers: int = 0):
@@ -74,16 +80,13 @@ def _router(x, router):
     return x.float() @ router
 
 
-def moe_apply(p, x, cfg):
-    """x: (B, S, D), or (M, B, S, D) with stacked weights -> (out of x's
-    shape, aux {"lb_loss", "dropped_frac"})."""
-    *lead, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    C = _capacity(cfg, S)
+def _route(probs, K: int, C: int):
+    """The capacity assignment of each batch row of ``probs`` (..., S, E):
+    the renormalized top-k gate values (..., S, K), the one-hot choices
+    (..., S*K, E), which choices keep a slot, each choice's slot (E*C for a
+    dropped one), and each slot's source token with its validity."""
+    *lead, S, E = probs.shape
     TK = S * K
-    dev = x.device
-
-    probs = torch.softmax(_router(x, p["router"]), dim=-1)       # (...,S,E)
     gate_vals, gate_idx = _top_k(probs, K)                        # (...,S,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
@@ -98,13 +101,42 @@ def moe_apply(p, x, cfg):
     # --- slot -> token map via scatter (E*C is the drop sentinel) ---
     slot = torch.where(keep, e_flat * C + pos_in_expert,
                        torch.full_like(e_flat, E * C))
-    src = torch.arange(TK, device=dev).expand(*lead, TK)
+    src = torch.arange(TK, device=probs.device).expand(*lead, TK)
     token_of_slot = torch.full((*lead, E * C + 1), TK, dtype=torch.int64,
-                               device=dev)
+                               device=probs.device)
     token_of_slot.scatter_(-1, slot, src)
     token_of_slot = token_of_slot[..., :E * C]
     slot_valid = token_of_slot < TK                               # (...,E*C)
     src_tok = torch.clamp(token_of_slot // K, max=S - 1)
+    return gate_vals, oh, keep, slot, slot_valid, src_tok
+
+
+def _route_rows(probs, K: int, C: int):
+    """``_route`` on the dry run's DTensors: every index is within a batch
+    row, so it runs on each rank's local rows (``local_map``) with the
+    experts whole; no collective runs inside it and no weight enters."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    rows = tuple(p if p.is_shard(0) else Replicate()
+                 for p in probs.placements)
+    fn = local_map(lambda pr: _route(pr, K, C), out_placements=(rows,) * 6,
+                   in_placements=(rows,), device_mesh=probs.device_mesh,
+                   redistribute_inputs=True)
+    return fn(probs)
+
+
+def moe_apply(p, x, cfg):
+    """x: (B, S, D), or (M, B, S, D) with stacked weights -> (out of x's
+    shape, aux {"lb_loss", "dropped_frac"})."""
+    *lead, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = _capacity(cfg, S)
+    TK = S * K
+    dev = x.device
+
+    probs = torch.softmax(pin_grad(_router(x, p["router"])), dim=-1)
+    gate_vals, oh, keep, slot, slot_valid, src_tok = (
+        _route_rows if is_dtensor(probs) else _route)(probs, K, C)
 
     # --- dispatch: gather token activations into expert slots ---
     exp_in = torch.gather(x, -2, src_tok[..., None].expand(*lead, E * C, D))

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import pin_grad
 from repro_torch.models.ssd import softplus
 
 _C = 8.0
@@ -93,8 +94,8 @@ def rglru_apply(p, x, cfg, cache=None):
         (B, cfg.conv_width - 1, w), dtype=x.dtype, device=x.device)
     xc, new_conv = _conv(xr, p["conv_w"], p["conv_b"], conv_state)
 
-    r = torch.sigmoid((xc @ p["w_a"]).float() + p["b_a"])
-    i = torch.sigmoid((xc @ p["w_i"]).float() + p["b_i"])
+    r = torch.sigmoid(pin_grad(xc @ p["w_a"]).float() + p["b_a"])
+    i = torch.sigmoid(pin_grad(xc @ p["w_i"]).float() + p["b_i"])
     log_a = -_C * softplus(p["lam"]) * r                         # (B,S,W) < 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import is_dtensor, pin_grad
+
 
 def ssd_dims(cfg):
     d_in = cfg.ssm_expand * cfg.d_model
@@ -133,13 +135,47 @@ def ssd_scan(x, dt, A, B_, C_, init_state, chunk: int = 64):
     return y, carry
 
 
+def _scan_rows(x, dt, A, B_, C_, init_state):
+    """``ssd_scan`` on the dry run's DTensors, run on each rank's local
+    batch rows, heads on ``model`` where they divide (``local_map``): the
+    scan is independent per (row, head), so no collective runs inside it.
+    Its einsums would otherwise merge batch, chunk and head into one
+    ``bmm`` batch dim that two mesh dims shard, which DTensor refuses."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+    model = names.index("model") if "model" in names else None
+    split = model is not None and x.shape[2] % mesh.size(model) == 0
+
+    def heads(dim: int, base: tuple = rows) -> tuple:
+        pl = list(base)
+        if split:
+            pl[model] = Shard(dim)
+        return tuple(pl)
+
+    def placed(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(placements=pl)
+
+    in_pl = (heads(2), heads(2), heads(0, (Replicate(),) * mesh.ndim),
+             rows, rows, heads(1))
+    fn = local_map(ssd_scan, out_placements=(heads(2), heads(1)),
+                   in_placements=in_pl, device_mesh=mesh)
+    return fn(*(placed(t, pl) for t, pl in
+                zip((x, dt, A, B_, C_, init_state), in_pl)))
+
+
 def ssd_apply(p, x, cfg, cache=None):
     """x: (B,S,D) -> (out, {"ssm", "conv"}). Handles prefill, partial
     prefill (``cache`` holds the state so far) and decode (S = 1, the
     single-step recurrence)."""
     Bb, S, D = x.shape
     d_in, nh, pdim, n = ssd_dims(cfg)
-    proj = x @ p["in_proj"]
+    proj = pin_grad(x @ p["in_proj"])
     z, xin, Bmat, Cmat, dt = torch.split(proj, [d_in, d_in, n, n, nh], dim=-1)
 
     conv_state = cache["conv"] if cache is not None else torch.zeros(
@@ -165,8 +201,8 @@ def ssd_apply(p, x, cfg, cache=None):
         y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), state)[:, None]
         final_state = state
     else:
-        y, final_state = ssd_scan(xh, dt, A, Bmat.float(), Cmat.float(),
-                                  init_state)
+        y, final_state = (_scan_rows if is_dtensor(xh) else ssd_scan)(
+            xh, dt, A, Bmat.float(), Cmat.float(), init_state)
 
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(Bb, S, d_in).to(x.dtype)

@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -648,7 +649,11 @@ class LocalDisaggEngine:
         self.stats.model_churn_events = 0     # construction is not churn
         self._requests: dict[int, RequestOutput] = {}
         self._ephemeral_sids: dict[int, int] = {}      # rid -> auto session
-        self._done: set[int] = set()                   # finished or aborted
+        # every finished request's tokens by rid until popped (the
+        # request-id surface: result/pop_result), the popped and the aborted
+        self._results: dict[int, np.ndarray] = {}
+        self._fetched: set[int] = set()
+        self._aborted: set[int] = set()
         self._next_rid = 0
         self._next_seq = 0                             # arrival order
         self._next_ctx_sid = 1 << 40
@@ -1007,11 +1012,99 @@ class LocalDisaggEngine:
         self.metrics_registry.trace(rid).event(SPAN_ROUTED, worker=worker.wid)
         bt, n = worker.prefill(sid, tokens)
         if params.max_tokens == 0:
-            self._on_request_done(rid, FINISH_LENGTH)
+            self._finish_prefill_only(rid)
             return
         self.scheduler.add_decode_seq(self._handoff_seq(
             bt, n, sid, model_id, params, first_token, rid, tokens=tokens,
             priority=priority))
+
+    # ------------------------------------------------------------------
+    # request-id surface (the reference's legacy API, deprecated there too)
+    # ------------------------------------------------------------------
+    def submit(self, sid: int, context_tokens, model_id: str,
+               gen_tokens: int, first_token: int = 2,
+               priority: int = 0) -> int:
+        """DEPRECATED: queue one greedy, fixed-length request against a
+        caller-managed session id and return its request id; drive with
+        ``run``/``step`` and fetch with ``result``/``pop_result``. Use
+        ``generate`` or a ``shared_context`` instead: this shim takes the
+        same path and gives the same tokens."""
+        warnings.warn(
+            "LocalDisaggEngine.submit() is deprecated; use "
+            "engine.generate(model_id, tokens, SamplingParams(...)) or "
+            "engine.shared_context(prefix).generate(...) instead",
+            DeprecationWarning, stacklevel=2)
+        return self._submit_rid(sid, context_tokens, model_id,
+                                SamplingParams(max_tokens=gen_tokens),
+                                first_token, priority)
+
+    def _submit_rid(self, sid: int, context_tokens, model_id: str,
+                    params: SamplingParams, first_token: int = 2,
+                    priority: int = 0) -> int:
+        """Issue a request id and queue the request under it (``_submit``),
+        with no ``RequestOutput`` handle: its tokens are kept by rid."""
+        if not self.paged:
+            raise ValueError("submit/run requires the paged data plane")
+        self.models.check_serving(model_id)
+        rid = self._next_rid
+        self._next_rid += 1
+        self._submit(rid, sid, [int(t) for t in np.asarray(context_tokens)],
+                     model_id, self._resolve_seed(params, rid), first_token,
+                     priority)
+        return rid
+
+    def invoke(self, sid: int, context_tokens, model_id: str,
+               gen_tokens: int, first_token: int = 2) -> np.ndarray:
+        """DEPRECATED: one blocking greedy invocation against a
+        caller-managed session id. Use ``generate(...).result()`` or a
+        ``shared_context`` instead: this shim gives the same tokens."""
+        warnings.warn(
+            "LocalDisaggEngine.invoke() is deprecated; use "
+            "engine.generate(model_id, tokens, SamplingParams(...)).result() "
+            "or engine.shared_context(prefix).generate(...) instead",
+            DeprecationWarning, stacklevel=2)
+        params = SamplingParams(max_tokens=gen_tokens)
+        if not self.paged:
+            toks, _ = self._invoke_dense(sid, context_tokens, model_id,
+                                         params, first_token)
+            return toks
+        rid = self._submit_rid(sid, context_tokens, model_id, params,
+                               first_token)
+        self.run()
+        return self.pop_result(rid)
+
+    def _check_rid(self, rid: int) -> None:
+        if rid in self._results:
+            return
+        if rid in self._fetched:
+            raise KeyError(
+                f"request {rid}: result was already fetched via pop_result()")
+        if rid in self._aborted:
+            raise KeyError(
+                f"request {rid}: aborted — no result was produced (streamed "
+                f"tokens, if any, live on its RequestOutput handle)")
+        if 0 <= rid < self._next_rid:
+            raise KeyError(
+                f"request {rid}: submitted but not finished — still waiting, "
+                f"prefilling, or decoding; drive the engine with run()/step()")
+        raise KeyError(
+            f"request {rid}: unknown request id (ids 0..{self._next_rid - 1} "
+            f"have been issued)")
+
+    def result(self, rid: int) -> np.ndarray:
+        """The finished output of ``rid``, NOT consumed: repeated calls
+        return the same array until ``pop_result``. A KeyError names the
+        rid and its fetch state (pending, already fetched, aborted,
+        unknown)."""
+        self._check_rid(rid)
+        return self._results[rid]
+
+    def pop_result(self, rid: int) -> np.ndarray:
+        """Fetch and release the finished output of ``rid``; a second pop
+        raises a KeyError that says so."""
+        self._check_rid(rid)
+        self._fetched.add(rid)
+        return self._results.pop(rid)
 
     # ------------------------------------------------------------------
     # request-centric API (repro_torch.serving.api)
@@ -1086,13 +1179,14 @@ class LocalDisaggEngine:
         rows freed and its host copy discarded."""
         rid = request.request_id if isinstance(request, RequestOutput) \
             else int(request)
-        if rid in self._done:
+        if rid in self._results or rid in self._fetched \
+                or rid in self._aborted:
             return False
         sched = self.scheduler
         for r in sched.waiting:                    # queued: nothing held yet
             if r.rid == rid:
                 sched.waiting.remove(r)
-                self._on_request_done(rid, FINISH_ABORT)
+                self._on_request_aborted(rid)
                 return True
         for r in sched.prefilling:                 # mid-chunk / held
             if r.rid != rid:
@@ -1103,12 +1197,12 @@ class LocalDisaggEngine:
             elif not r.committed:   # committed: the session owns the pages
                 r.worker.mgr.abandon(r.alloc)
                 r.worker.pending_chunk_tokens -= r.n - r.done
-            self._on_request_done(rid, FINISH_ABORT)
+            self._on_request_aborted(rid)
             return True
         if self.swap is not None and rid in self.swap.records:
             # revoked rows already belong to their new owners: untouched
             self.swap.abort(rid)
-            self._on_request_done(rid, FINISH_ABORT)
+            self._on_request_aborted(rid)
             return True
         for s in sched.active:
             if s.rid != rid:
@@ -1118,7 +1212,7 @@ class LocalDisaggEngine:
             sched.active.remove(s)
             self.block_pool.unref(s.shared_blocks)
             self.block_pool.drop(s.private_blocks)
-            self._on_request_done(rid, FINISH_ABORT)
+            self._on_request_aborted(rid)
             return True
         return False
 
@@ -1141,27 +1235,32 @@ class LocalDisaggEngine:
         scheduler until the prefill-only request completes."""
         if not self.paged:
             raise ValueError("shared contexts require the paged data plane")
-        tokens = [int(t) for t in tokens]
-        if not self.chunked:
-            self._pick_worker(sid, tokens).prefill(sid, tokens)
-            return
         rid = self._next_rid
         self._next_rid += 1
-        self._submit(rid, sid, tokens, None, SamplingParams(max_tokens=0), 2)
-        while rid not in self._done:
+        self._submit(rid, sid, [int(t) for t in tokens], None,
+                     SamplingParams(max_tokens=0), 2)
+        while rid not in self._results:
             self.scheduler.step()
+        self.pop_result(rid)                       # the empty marker array
+
+    def _finish_prefill_only(self, rid: int) -> None:
+        self._results[rid] = np.zeros(0, np.int32)
+        self._on_request_done(rid, FINISH_LENGTH)
 
     def _on_request_done(self, rid: int, reason: str) -> None:
         # terminal trace span: "aborted" for an abort at any stage,
         # "finished" with the reason otherwise
         self.metrics_registry.trace(rid).close(reason)
-        self._done.add(rid)
         out = self._requests.pop(rid, None)
         if out is not None:
             out._mark_finished(reason)
         sid = self._ephemeral_sids.pop(rid, None)
         if sid is not None:
             self.end_session(sid)                  # one-shot session cleanup
+
+    def _on_request_aborted(self, rid: int) -> None:
+        self._aborted.add(rid)
+        self._on_request_done(rid, FINISH_ABORT)
 
     def run(self) -> None:
         """Drive the scheduler until every request finishes."""
@@ -1263,6 +1362,7 @@ class LocalDisaggEngine:
         return adopted
 
     def _finish(self, s: DecodeSeq) -> None:
+        self._results[s.rid] = np.asarray(s.out, np.int32)
         adopted = self._relay_publish(s)
         self.block_pool.unref(s.shared_blocks)   # freed only w/ last holder
         if adopted:
@@ -1299,7 +1399,6 @@ class LocalDisaggEngine:
             self._h_ttft.observe(out.ttft)
             for gap in out.inter_token_latencies():
                 self._h_itl.observe(gap)
-        self._done.add(rid)
         out._mark_finished(reason)
         if ephemeral:
             self.end_session(sid)

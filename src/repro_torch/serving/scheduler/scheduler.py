@@ -46,7 +46,6 @@ from dataclasses import dataclass, field
 from repro_torch.core.prefillshare import base_prefill_chunk
 from repro_torch.device import synchronize
 from repro_torch.kvcache.blocks import PoolExhausted
-from repro_torch.serving.api import FINISH_LENGTH
 from repro_torch.serving.decode import next_pow2
 from repro_torch.serving.metrics import SPAN_CHUNK, SPAN_ROUTED
 from repro_torch.serving.scheduler.queue import POLICIES, order_requests
@@ -389,7 +388,7 @@ class ChunkedScheduler:
                     self._commit_request(r)
                 self.prefilling.remove(r)
                 self.promoted.append(r.rid)
-                self.engine._on_request_done(r.rid, FINISH_LENGTH)
+                self.engine._finish_prefill_only(r.rid)
                 promoted += 1
                 continue
             # decode admission control: the handoff's CoW clone plus THIS
