@@ -19,8 +19,13 @@ then the device time (``launch.timing.device_ms``) of one fused decode
 step of that batch, and finally traces, with ``torch.profiler``, one more
 request's prefill and 8 steps, and prints the device time by kernel (top
 25), the device time per kernel class (matrix products, paged_decode,
-paged_write, flash_prefill_paged, the rest) and the device's busy share of
-the traced window's wall time. Last, the device time of a new
+paged_write, flash_prefill_paged, the rest), the device's busy share of
+the traced window's wall time (the union of the kernel and copy
+intervals, so kernels that overlap count once), and beside them the host's
+time in the engine's step spans (``serving.metrics``: each span's own
+time, its children's left out, summed by name over the traced window).
+It fails if a device record carries a span's name: the spans reach the
+trace as host records only. Last, the device time of a new
 1000-token context's prefill (chunked: five 200-token chunk forwards;
 eager: one prefill), a fresh prompt each time, so no prefix is reused.
 ``chip_smoke.py`` phase 18 sets these beside the serving simulator's cost
@@ -53,6 +58,19 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def _union_ns(intervals) -> int:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -64,6 +82,7 @@ def main(argv) -> int:
                                               tokens)
     from repro_torch.launch.timing import device_ms
     from repro_torch.serving import SamplingParams
+    from repro_torch.serving import metrics as M
 
     if not torch.cuda.is_available():
         print("profile: needs a CUDA card", file=sys.stderr)
@@ -103,6 +122,7 @@ def main(argv) -> int:
     step_device_ms = device_ms(eng.step, iters=8)
 
     torch.cuda.synchronize()
+    first_span = M.SPANS._next
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
@@ -111,6 +131,8 @@ def main(argv) -> int:
             eng.step()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - w0
+    spans = [s for s in M.spans() if s.index >= first_span
+             and s.name != M.SPAN_REQ and s.name not in M.REQUEST_PHASES]
     eng.run()
     ctx.close()
 
@@ -119,14 +141,19 @@ def main(argv) -> int:
     context_device_ms = device_ms(context_prefill, iters=3)
 
     by_class: dict = {}
-    busy_us = 0.0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    intervals = []
+    span_names = {s.name for s in spans}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        us = ev.time_range.elapsed_us()
-        busy_us += us
-        c = _kernel_class(ev.name)
-        by_class[c] = by_class.get(c, 0.0) + us
+        if ev.name() in span_names:
+            raise RuntimeError(
+                f"a device record named after the span {ev.name()!r}")
+        t0, ns = ev.start_ns(), ev.duration_ns()
+        intervals.append((t0, t0 + ns))
+        c = _kernel_class(ev.name())
+        by_class[c] = by_class.get(c, 0.0) + ns / 1e3
+    busy_us = _union_ns(intervals) / 1e3
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=25))
     card = torch.cuda.get_device_name(0)
@@ -141,6 +168,8 @@ def main(argv) -> int:
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / window_s,
         "device_ms_by_class": {k: v / 1e3 for k, v in sorted(by_class.items())},
+        "span_self_ms": {k: v / 1e6 for k, v in
+                         sorted(M.self_ns(spans).items())},
     }))
     return 0
 

@@ -26,13 +26,16 @@ The port does not copy it. Per step (``StackedDecoders.step``):
   - every real row writes its K/V straight into the shared pool. That is
     exact: written pages are private per sequence. Padding rows write
     nothing: the step passes the real rows' flat indices down, so sentinel
-    page 0 stays zero, as in the reference.
+    page 0 stays zero, as in the reference. ``grid_rows`` keeps the last
+    step's M * Bmax, padding included (the ``engine.step`` span's
+    attribute).
 
 Per-request sampling runs in the step on the real rows' fp32 logits
 (``serving.sampling``): keys fold from (seed, position), so a stream does
 not depend on the packing; ``temperature=0`` rows are exact argmax, and an
 all-greedy batch runs the argmax alone, none of the sampler. The one host
-sync per step is the read-back of the next tokens.
+sync per step is the read-back of the next tokens (the
+``model.decode.readback`` span).
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from repro_torch.core.lora import (check_layer_adapters, lora_lanes,
                                    stack_params)
 from repro_torch.models import decode_stacked
 from repro_torch.params import tree_leaves
+from repro_torch.serving.metrics import NULL_SPANS, SPAN_READBACK
 from repro_torch.serving.sampling import sample_step
 
 
@@ -79,6 +83,17 @@ def next_tokens(logits, seqs, device) -> list:
     return sample_step(logits, pos.to(device), *samp).cpu().tolist()
 
 
+def read_back(logits, seqs, device, spans) -> list:
+    """``next_tokens`` inside a ``model.decode.readback`` span of
+    ``spans`` (the span takes in the argmax's, or the sampler's, launch
+    before the read-back)."""
+    span = spans.open(SPAN_READBACK)
+    try:
+        return next_tokens(logits, seqs, device)
+    finally:
+        spans.close(span)
+
+
 def group_specs(specs):
     """Partition ``{model_id: (cfg, DecodeModelSpec)}`` into fusable groups:
     models sharing an identical ModelConfig and weight-layout bucket (all
@@ -93,10 +108,12 @@ def group_specs(specs):
 class StackedDecoders:
     """All decode modules of ONE fusable group, stacked for the fused step."""
 
-    def __init__(self, cfg, members: dict, kvpool, base_params=None):
+    def __init__(self, cfg, members: dict, kvpool, base_params=None, *,
+                 spans=NULL_SPANS):
         """``members``: {model_id: DecodeModelSpec}, all sharing ``cfg`` and
         one ``group_key``. ``base_params`` (the engine's single copy) is
-        required for a LoRA group and is not copied."""
+        required for a LoRA group and is not copied. ``spans`` records the
+        tokens' read-back (``serving.metrics``)."""
         if not members:
             raise ValueError("need at least one decode module")
         self.cfg = cfg
@@ -122,6 +139,8 @@ class StackedDecoders:
             self._lanes = None
         self.index = {mid: m for m, mid in enumerate(self.model_ids)}
         self.dispatches = 0                          # fused-step invocations
+        self.grid_rows = 0                           # the last step's M*Bmax
+        self.spans = spans
 
     def param_bytes(self) -> int:
         """Bytes of decode weights this group stores beyond the engine's
@@ -144,6 +163,7 @@ class StackedDecoders:
             coords.append((m, counts[m]))
             counts[m] += 1
         bmax = max(counts)
+        self.grid_rows = M * bmax
         npages = next_pow2(max(len(s.block_table) for s in seqs))
         toks = np.zeros((M, bmax), np.int32)
         pos = np.zeros((M, bmax), np.int32)
@@ -168,7 +188,7 @@ class StackedDecoders:
                                 lanes=self._lanes)
         self.dispatches += 1
         lg = logits.reshape(M * bmax, -1).index_select(0, flat)   # (N, V)
-        return next_tokens(lg, seqs, dev)
+        return read_back(lg, seqs, dev, self.spans)
 
 
 class FusedDecodePlane:
@@ -180,13 +200,16 @@ class FusedDecodePlane:
     forward."""
 
     def __init__(self, specs, kvpool, base_params=None, *,
-                 dispatches0: int = 0):
+                 dispatches0: int = 0, spans=NULL_SPANS):
         """specs: {model_id: (cfg, DecodeModelSpec)}; ``base_params``: the
-        engine's single base copy, which LoRA groups read."""
-        self.groups = [StackedDecoders(cfg, members, kvpool, base_params)
+        engine's single base copy, which LoRA groups read; ``spans``: where
+        the groups record their read-backs."""
+        self.groups = [StackedDecoders(cfg, members, kvpool, base_params,
+                                       spans=spans)
                        for (cfg, _k), members in group_specs(specs).items()]
         self._group_of = {mid: g for g in self.groups for mid in g.model_ids}
         self._dispatches0 = dispatches0
+        self.grid_rows = 0            # the last step's rows, padding included
 
     @property
     def model_ids(self) -> list:
@@ -203,10 +226,12 @@ class FusedDecodePlane:
     def step(self, seqs) -> list:
         """One engine decode step; returns next tokens aligned with seqs."""
         nxt = [0] * len(seqs)
+        self.grid_rows = 0
         for g in self.groups:
             idx = [i for i, s in enumerate(seqs)
                    if self._group_of[s.model_id] is g]
             if idx:
                 for i, t in zip(idx, g.step([seqs[i] for i in idx])):
                     nxt[i] = t
+                self.grid_rows += g.grid_rows
         return nxt

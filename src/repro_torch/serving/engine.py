@@ -55,8 +55,9 @@ Decode models are full fine-tunes (``DecodeModelSpec(full=...)``) or LoRA
 adapters over the engine's base weights (``DecodeModelSpec(lora=...)``).
 ``metrics=True`` (the default) publishes latency histograms, gauges and
 per-request traces into one ``MetricsRegistry`` (``engine.metrics()``,
-``engine.render_prometheus()``); ``engine.stats`` is a view over its
-counters either way.
+``engine.render_prometheus()``), and step and request spans into the
+process's span record (``serving.metrics.spans()``); ``engine.stats`` is a
+view over its counters either way.
 
 ``LocalDisaggEngine(..., device=None)`` runs on the card; pass
 ``device="cpu"`` for the plain PyTorch versions of the kernels.
@@ -67,6 +68,7 @@ import dataclasses
 import time
 import warnings
 from dataclasses import dataclass, field
+from time import perf_counter_ns
 
 import numpy as np
 import torch
@@ -89,10 +91,12 @@ from repro_torch.serving.api import (FINISH_ABORT, FINISH_LENGTH,
 from repro_torch.serving.autoscale import AutoscaleSignals, Autoscaler
 from repro_torch.serving.backpressure import ThroughputEWMA
 from repro_torch.serving.decode import (FusedDecodePlane, next_pow2,
-                                        next_tokens)
-from repro_torch.serving.metrics import (SPAN_FIRST_TOKEN, SPAN_HANDOFF,
-                                         SPAN_ROUTED, SPAN_TOKEN,
-                                         MetricsRegistry)
+                                        read_back)
+from repro_torch.serving.metrics import (NULL_SPANS, REQUEST_PHASES,
+                                         SPAN_DECODE, SPAN_FIRST_TOKEN,
+                                         SPAN_HANDOFF, SPAN_KV_HANDOFF,
+                                         SPAN_PUSH, SPAN_REQ, SPAN_ROUTED,
+                                         SPANS, MetricsRegistry)
 from repro_torch.serving.preempt import PreemptConfig, SwapManager
 from repro_torch.serving.registry import ModelRegistry, as_spec
 from repro_torch.serving.router import PrefillRouter
@@ -140,6 +144,27 @@ class DecodeSeq:
     first0: int = 2               # the handoff's first decode input token
     priority: int = 0             # preemption rank (serving/preempt.py):
                                   # lower priorities are victims first
+
+
+@dataclass(slots=True)
+class RequestPhases:
+    """The times (``perf_counter_ns``; 0: not reached) that bound one
+    request's phases, kept while it lives and written as its ``req`` spans
+    when it ends (``LocalDisaggEngine._request_spans``)."""
+    submit: int
+    prompt: int
+    model_id: str | None
+    cached: int = 0               # prompt tokens the prefix cache served
+    chunk0: int = 0               # its first chunk forward's start
+    chunk1: int = 0               # its last chunk forward's end
+    promote: int = 0              # the handoff done
+    first: int = 0                # its first and last token's push (read
+    last: int = 0                 # from its handle when it has one)
+
+
+def _ns(t: float) -> int:
+    """A ``time.perf_counter()`` reading in ``perf_counter_ns`` units."""
+    return round(t * 1e9)
 
 
 class _CounterField:
@@ -445,6 +470,8 @@ class DecodeWorker:
     #: may this model's decode-written KV be relay-published? Set by the
     #: engine at attach time (KV path identical to the frozen base).
     relay_compatible = False
+    #: where ``step`` records the tokens' read-back (the engine's record)
+    spans = NULL_SPANS
 
     def __init__(self, cfg: ModelConfig, model_id: str, spec,
                  expected_schema, base_params=None):
@@ -479,7 +506,7 @@ class DecodeWorker:
         cache = kvpool.make_decode_cache(torch.from_numpy(bt).to(dev))
         logits, _, _ = forward(self.cfg, self.dec_params,
                                toks.to(dev)[:, None], cache=cache, pos=pos)
-        return next_tokens(logits, seqs, dev)
+        return read_back(logits, seqs, dev, self.spans)
 
     @torch.no_grad()
     def generate(self, cache, start_pos: int, first_token: int,
@@ -579,6 +606,10 @@ class LocalDisaggEngine:
         # counters stay real because stats() runs on them
         self._metrics_on = metrics
         self.metrics_registry = MetricsRegistry(enabled=metrics)
+        #: step and request spans: the process's record, or a no-op
+        self.spans = SPANS if metrics else NULL_SPANS
+        #: rid -> RequestPhases of each live request (metrics on)
+        self._phases: dict[int, RequestPhases] = {}
         self.stats = EngineStats(_engine=self,
                                  registry=self.metrics_registry)
         self.schema = cache_schema(cfg, base_params, capacity)
@@ -907,6 +938,7 @@ class LocalDisaggEngine:
         dw = DecodeWorker(self.cfg, model_id, spec, self.schema,
                           self.base_params)
         dw.relay_compatible = self._relay_compatible(dw.spec)
+        dw.spans = self.spans
         self.decoders[model_id] = dw
 
     def _detach_decoder(self, model_id: str) -> None:
@@ -923,7 +955,8 @@ class LocalDisaggEngine:
             {mid: (self.cfg, spec)
              for mid, spec in self.models._specs.items()},
             self.kvpool, self.base_params,
-            dispatches0=old.dispatches if old is not None else 0)
+            dispatches0=old.dispatches if old is not None else 0,
+            spans=self.spans)
         if old is not None:
             self.stats.plane_rebuilds += 1
 
@@ -955,6 +988,7 @@ class LocalDisaggEngine:
         handoff refs rolled back) if the clone page cannot be allocated."""
         dw = self.decoders[model_id]
         HandoffChannel.check(self.schema, dw.expected_schema)
+        span = self.spans.open(SPAN_KV_HANDOFF)
         t0 = time.perf_counter()
         bt = list(block_table)
         self.block_pool.ref(bt)
@@ -967,6 +1001,7 @@ class LocalDisaggEngine:
                 [fresh] = self.block_pool.alloc(1)
             except PoolExhausted:
                 self.block_pool.unref(bt)      # roll back the handoff refs
+                self.spans.close(span)
                 raise
             self.kvpool.copy_page(last, fresh)
             self.block_pool.unref([last])
@@ -984,6 +1019,8 @@ class LocalDisaggEngine:
             self._h_handoff_b.observe(plan.bytes)
             self.metrics_registry.trace(rid).event(
                 SPAN_HANDOFF, bytes=plan.bytes, seconds=dt)
+        self.spans.close(span, {"rid": rid, "bytes": plan.bytes}
+                         if self._metrics_on else None)
         return DecodeSeq(rid, sid, model_id, bt, shared, private, n,
                          first_token, params.max_tokens, params,
                          tokens=list(tokens) if tokens is not None else [],
@@ -991,16 +1028,22 @@ class LocalDisaggEngine:
 
     def _submit(self, rid: int, sid: int, tokens: list, model_id: str | None,
                 params: SamplingParams, first_token: int,
-                priority: int = 0) -> None:
+                priority: int = 0, t_submit: float | None = None) -> None:
         """Queue one request. Chunked mode: it enters the scheduler's
         admission queue and its prompt is prefilled in token-budget chunks
         interleaved with decode, admitted in ``priority`` order under the
         priority policy. Eager mode: whole-prompt prefill and handoff happen
         here, synchronously and in call order, so ``priority`` has no
         effect. ``max_tokens == 0`` is prefill-only: the prompt becomes
-        resident (and published for prefix reuse), no decode."""
+        resident (and published for prefix reuse), no decode. ``t_submit``
+        (``perf_counter``): the send, where the request's spans start
+        (default: now)."""
         # the lifecycle trace opens here (queued span); later stages append
         self.metrics_registry.start_trace(rid, model_id)
+        if self._metrics_on:
+            self._phases[rid] = RequestPhases(
+                perf_counter_ns() if t_submit is None else _ns(t_submit),
+                len(tokens), model_id)
         if self.chunked:
             self.scheduler.add(Request(
                 rid=rid, sid=sid, model_id=model_id, tokens=tokens,
@@ -1008,15 +1051,33 @@ class LocalDisaggEngine:
                 priority=priority, seq=self._next_seq, params=params))
             self._next_seq += 1
             return
-        worker = self._pick_worker(sid, tokens)
-        self.metrics_registry.trace(rid).event(SPAN_ROUTED, worker=worker.wid)
-        bt, n = worker.prefill(sid, tokens)
-        if params.max_tokens == 0:
-            self._finish_prefill_only(rid)
-            return
-        self.scheduler.add_decode_seq(self._handoff_seq(
-            bt, n, sid, model_id, params, first_token, rid, tokens=tokens,
-            priority=priority))
+        ph = self._phases.get(rid)
+        try:
+            worker = self._pick_worker(sid, tokens)
+            self.metrics_registry.trace(rid).event(SPAN_ROUTED,
+                                                   worker=worker.wid)
+            computed0 = self.stats.prefill_tokens_computed
+            t0 = perf_counter_ns() if ph is not None else 0
+            bt, n = worker.prefill(sid, tokens)
+            if ph is not None:
+                computed = self.stats.prefill_tokens_computed - computed0
+                ph.cached = n - computed
+                if computed:
+                    ph.chunk0, ph.chunk1 = t0, perf_counter_ns()
+            if params.max_tokens == 0:
+                if ph is not None:
+                    ph.promote = perf_counter_ns()
+                self._finish_prefill_only(rid)
+                return
+            seq = self._handoff_seq(bt, n, sid, model_id, params,
+                                    first_token, rid, tokens=tokens,
+                                    priority=priority)
+        except BaseException:
+            self._phases.pop(rid, None)
+            raise
+        if ph is not None:
+            ph.promote = perf_counter_ns()
+        self.scheduler.add_decode_seq(seq)
 
     # ------------------------------------------------------------------
     # request-id surface (the reference's legacy API, deprecated there too)
@@ -1148,7 +1209,8 @@ class LocalDisaggEngine:
             self._ephemeral_sids[rid] = sid
         try:
             self._submit(rid, sid, [int(t) for t in np.asarray(tokens)],
-                         model_id, params, first_token, priority)
+                         model_id, params, first_token, priority,
+                         t_submit=out.submit_time)
         except Exception:
             # prefill can raise (PoolExhausted) after the handle was
             # registered: unwind so retries leak no orphan handles
@@ -1251,12 +1313,47 @@ class LocalDisaggEngine:
         # terminal trace span: "aborted" for an abort at any stage,
         # "finished" with the reason otherwise
         self.metrics_registry.trace(rid).close(reason)
+        ph = self._phases.pop(rid, None)
+        if ph is not None:
+            self._request_spans(rid, ph, reason, self._requests.get(rid))
         out = self._requests.pop(rid, None)
         if out is not None:
             out._mark_finished(reason)
         sid = self._ephemeral_sids.pop(rid, None)
         if sid is not None:
             self.end_session(sid)                  # one-shot session cleanup
+
+    def _request_spans(self, rid: int, ph: RequestPhases, reason: str,
+                       out: RequestOutput | None) -> None:
+        """Write a request's spans: ``req`` from its send to its end (its
+        last token; an aborted one's abort), and the phases that tile it.
+        A phase not reached is left out; an abort ends the phase it
+        interrupted."""
+        if out is not None and out.token_times:
+            times = out.token_times
+            ph.first, ph.last = _ns(times[0]), _ns(times[-1])
+        queued = ph.chunk0 or ph.promote
+        ends = (queued, (ph.chunk1 or queued) if ph.promote else 0,
+                ph.promote, ph.first, ph.last)
+        phases, t = [], ph.submit
+        for name, end in zip(REQUEST_PHASES, ends):
+            if not end:
+                if reason == FINISH_ABORT:
+                    phases.append((name, t, perf_counter_ns()))
+                break
+            phases.append((name, t, end))
+            t = end
+        else:
+            if reason == FINISH_ABORT:
+                name, t0, _ = phases.pop()
+                phases.append((name, t0, perf_counter_ns()))
+        end = phases[-1][2] if phases else ph.submit
+        sp = self.spans
+        parent = sp.add(SPAN_REQ, ph.submit, end, key=rid, attrs={
+            "prompt": ph.prompt, "cached": ph.cached, "model": ph.model_id,
+            "finish": reason})
+        for name, t0, t1 in phases:
+            sp.add(name, t0, t1, parent, rid)
 
     def _on_request_aborted(self, rid: int) -> None:
         self._aborted.add(rid)
@@ -1278,20 +1375,24 @@ class LocalDisaggEngine:
                 s.block_table.append(fresh)
                 s.private_blocks.append(fresh)
 
-    def decode_step(self, seqs: list[DecodeSeq]) -> None:
+    def decode_step(self, seqs: list[DecodeSeq]) -> int:
         """Advance every active sequence, across ALL decode models, one
         token, sampled per its request's SamplingParams: ONE fused forward
         per step per group (``fused=False``: one per model). Streams each
         token to its request handle, observes TTFT/ITL at the push
         timestamps, and retires sequences that emit their eos/stop token on
-        the next reap."""
+        the next reap. Returns the rows the forwards ran, padding rows of
+        the fused grid included."""
         if not seqs:
-            return
+            return 0
+        sp = self.spans
+        span = sp.open(SPAN_DECODE)
         self._grow_tail_pages(seqs)
         if self.decode_plane is not None:
             before = self.decode_plane.dispatches
             nxt = self.decode_plane.step(seqs)
             self.stats.decode_dispatches += self.decode_plane.dispatches - before
+            grid_rows = self.decode_plane.grid_rows
         else:
             nxt = [0] * len(seqs)
             by_model: dict[str, list] = {}
@@ -1301,6 +1402,9 @@ class LocalDisaggEngine:
                 toks = self._batched_step(mid, [seqs[i] for i in idx])
                 for i, t in zip(idx, toks):
                     nxt[i] = t
+            grid_rows = len(seqs)
+        sp.close(span)
+        span = sp.open(SPAN_PUSH)
         metrics_on = self._metrics_on      # one branch per token when off
         for s, t in zip(seqs, nxt):
             s.out.append(t)
@@ -1320,8 +1424,14 @@ class LocalDisaggEngine:
                             SPAN_FIRST_TOKEN, t=times[0])
                     else:
                         self._h_itl.observe(times[-1] - times[-2])
-                        self.metrics_registry.trace(s.rid).event(
-                            SPAN_TOKEN, t=times[-1])
+            elif metrics_on:
+                # no handle (the request-id surface): its phases keep the
+                # push times themselves
+                ph = self._phases.get(s.rid)
+                if ph is not None:
+                    ph.last = perf_counter_ns()
+                    if not ph.first:
+                        ph.first = ph.last
             reason = s.params.is_stop(t)
             if reason is not None:
                 s.finish_reason = reason
@@ -1330,6 +1440,8 @@ class LocalDisaggEngine:
         self.stats.decode_tokens += len(seqs)
         if metrics_on:
             self._h_batch.observe(len(seqs))
+        sp.close(span)
+        return grid_rows
 
     def _batched_step(self, mid: str, seqs: list[DecodeSeq]) -> list:
         """One per-model forward (the ``fused=False`` dispatch unit);

@@ -30,26 +30,41 @@ surface — not a counter grab-bag. This module is that surface:
     production-stack router/KEDA scrape pattern). ``lint_prometheus``
     validates the exposition format (CI gate: no duplicate/unnamed series).
 
+  - ``SpanRecord``: the port's own addition, one process-wide ring of
+    timed spans (``SPANS``; read with ``spans()``, emptied with
+    ``clear_spans()``) that every engine of the process writes to. Step
+    spans mark where an engine step's host time goes (``engine.step`` and
+    its phases, names below); each is also recorded into a running
+    ``torch.profiler`` as an ordinary ``cpu_op`` record, so a trace's idle
+    gaps fall on the program's phases. Request spans tile one request from
+    its send to its end (``req`` and its five phases), written once when
+    it ends. Spans are not Prometheus series.
+
 Disabled mode (``MetricsRegistry(enabled=False)``): histograms, gauges, and
 traces degrade to shared no-op singletons whose methods take fixed-arity
 arguments (no ``*args`` tuple build), so the decode hot loop pays one
 attribute lookup + one no-op call and ZERO allocations per would-be sample
-(asserted in tests/test_metrics.py and tests/test_torch_metrics.py). Counters stay REAL even when disabled:
-they back the pre-existing ``engine.stats()`` counter surface, which must
-keep working with observability off.
+(asserted in tests/test_metrics.py and tests/test_torch_metrics.py); an
+engine built with ``metrics=False`` records its spans into ``NULL_SPANS``,
+the same kind of no-op (tests/test_torch_spans.py). Counters stay REAL
+even when disabled: they back the pre-existing ``engine.stats()`` counter
+surface, which must keep working with observability off.
 """
 from __future__ import annotations
 
 import math
 import time
 from bisect import bisect_left
-from collections import OrderedDict
+from collections import OrderedDict, namedtuple
+from time import perf_counter_ns
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "RequestTrace",
     "NullHistogram", "NullGauge", "NullTrace", "lint_prometheus",
     "SPAN_QUEUED", "SPAN_ROUTED", "SPAN_CHUNK", "SPAN_HANDOFF",
     "SPAN_FIRST_TOKEN", "SPAN_TOKEN", "SPAN_FINISHED", "SPAN_ABORTED",
+    "Span", "SpanRecord", "NullSpans", "SPANS", "NULL_SPANS", "spans",
+    "clear_spans", "self_ns", "REQUEST_PHASES",
 ]
 
 # trace span-event names (one vocabulary, engine-wide)
@@ -524,3 +539,175 @@ def lint_prometheus(text: str) -> list[str]:
                     f"bucket counts decrease")
             last = cum
     return problems
+
+
+# ----------------------------------------------------------------------
+# the process-wide span record (the port's own; not in the reference)
+
+# step spans, keyed by the scheduler's step number. ``engine.step`` minus
+# its ``model.*`` children is the scheduler's own host time;
+# ``model.chunk.sync`` plus ``model.decode.readback`` is the time the host
+# waits on the card
+SPAN_STEP = "engine.step"              # one ChunkedScheduler.step
+SPAN_REAP = "sched.reap"               # retire finished sequences
+SPAN_ADMIT = "sched.admit"             # waiting -> prefilling
+SPAN_PLAN = "sched.plan"               # chunk packing under the budget
+SPAN_CHUNK_FWD = "model.chunk"         # one equal-length chunk forward
+SPAN_CHUNK_SYNC = "model.chunk.sync"   # the synchronize after it
+SPAN_PROMOTE = "sched.promote"         # prefilled -> decoding
+SPAN_KV_HANDOFF = "kv.handoff"         # one zero-copy handoff
+SPAN_DECODE = "model.decode"           # tail pages + the decode forward(s)
+SPAN_READBACK = "model.decode.readback"  # next tokens to the host
+SPAN_PUSH = "engine.push"              # token pushes, stop checks, observes
+
+# request spans, keyed by the request id: ``req`` from the send to the
+# request's end, and its phases, which tile it exactly
+SPAN_REQ = "req"
+#: send -> the start of the first chunk forward computing any of its tokens
+#: (to its promotion when it computes nothing) -> the end of its last chunk
+#: forward -> its promotion (the handoff) -> its first token -> its last
+REQUEST_PHASES = ("req.queue", "req.prefill", "req.handoff_wait",
+                  "req.first_token", "req.decode")
+
+#: spans the ring keeps (about three times what a 50 s benchmark run with
+#: its set-up and drain writes)
+SPAN_CAPACITY = 1 << 17
+
+#: one span: ``index`` in record order of its opening, ``start_ns`` and
+#: ``end_ns`` on ``time.perf_counter_ns()`` (the clock of
+#: ``RequestOutput.token_times``), ``parent`` the index of the span it ran
+#: inside (-1: none), ``key`` the step number or request id, ``attrs`` a
+#: dict of its attributes or None
+Span = namedtuple("Span", "index name start_ns end_ns parent key attrs")
+
+
+def _profiler_hooks():
+    """``(is_on, record)``: whether a torch.profiler runs, and the record
+    that marks a span in it as an ordinary ``cpu_op``. ``record_function``
+    is never used: the profiler mirrors its user annotations onto the
+    device's timeline, where a trace would count them as device work."""
+    try:
+        import torch
+    except ImportError:
+        return None, None
+    is_on = getattr(getattr(torch._C, "_autograd", None),
+                    "_profiler_enabled", None)
+    record = getattr(getattr(torch._C, "_profiler", None),
+                     "_RecordFunctionFast", None)
+    return (is_on, record) if is_on is not None and record is not None \
+        else (None, None)
+
+
+class SpanRecord:
+    """A bounded ring of spans, written by one thread.
+
+    ``open(name)`` starts a span inside the innermost open one (whose key
+    it takes unless given one) and returns its index; ``close(index,
+    attrs)`` ends it, and any span still open inside it (left open by an
+    exception). ``add`` records a finished span from known times. The ring
+    keeps the last ``capacity`` spans; ``spans()`` returns the closed ones
+    in index order."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self.capacity = capacity
+        self._ring = [None] * capacity
+        self._next = 0
+        self._open: list = []         # (index, name, parent, key, mirror, t0)
+        self._profiling, self._mirror = _profiler_hooks()
+
+    def open(self, name: str, key=None) -> int:
+        i = self._next
+        self._next = i + 1
+        stack = self._open
+        parent = -1
+        if stack:
+            top = stack[-1]
+            parent = top[0]
+            if key is None:
+                key = top[3]
+        rf = None
+        if self._profiling is not None and self._profiling():
+            rf = self._mirror(name)
+            rf.__enter__()
+        stack.append((i, name, parent, key, rf, perf_counter_ns()))
+        return i
+
+    def close(self, i: int, attrs=None) -> None:
+        t1 = perf_counter_ns()
+        stack = self._open
+        if not stack or (stack[-1][0] != i
+                         and all(s[0] != i for s in stack)):
+            return
+        while True:
+            j, name, parent, key, rf, t0 = stack.pop()
+            if rf is not None:
+                rf.__exit__(None, None, None)
+            self._ring[j % self.capacity] = (
+                j, name, t0, t1, parent, key, attrs if j == i else None)
+            if j == i:
+                return
+
+    def add(self, name: str, start_ns: int, end_ns: int, parent: int = -1,
+            key=None, attrs=None) -> int:
+        i = self._next
+        self._next = i + 1
+        self._ring[i % self.capacity] = (i, name, start_ns, end_ns, parent,
+                                         key, attrs)
+        return i
+
+    def spans(self) -> list:
+        n, cap, ring = self._next, self.capacity, self._ring
+        out = []
+        for j in range(max(0, n - cap), n):
+            rec = ring[j % cap]
+            if rec is not None and rec[0] == j:
+                out.append(Span._make(rec))
+        return out
+
+    def clear(self) -> None:
+        """Empty the ring (open spans are kept and land when closed)."""
+        self._ring = [None] * self.capacity
+
+
+class NullSpans:
+    """What an engine built with ``metrics=False`` records into: fixed-arity
+    no-ops, one shared instance, nothing allocated."""
+
+    __slots__ = ()
+
+    def open(self, name, key=None):
+        return -1
+
+    def close(self, i, attrs=None):
+        pass
+
+    def add(self, name, start_ns, end_ns, parent=-1, key=None, attrs=None):
+        return -1
+
+
+SPANS = SpanRecord()
+NULL_SPANS = NullSpans()
+
+
+def spans() -> list:
+    """Every span the process's ring holds, in index order."""
+    return SPANS.spans()
+
+
+def clear_spans() -> None:
+    SPANS.clear()
+
+
+def self_ns(span_list) -> dict:
+    """Nanoseconds by span name of each span's own time: its length less
+    its children's (the spans whose parent it is)."""
+    child_ns: dict = {}
+    for s in span_list:
+        if s.parent >= 0:
+            child_ns[s.parent] = child_ns.get(s.parent, 0) + (
+                s.end_ns - s.start_ns)
+    out: dict = {}
+    for s in span_list:
+        out[s.name] = out.get(s.name, 0) + (
+            s.end_ns - s.start_ns - child_ns.get(s.index, 0))
+    return out

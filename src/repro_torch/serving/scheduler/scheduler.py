@@ -37,17 +37,31 @@ after the step (``engine.sanitizer``).
 The same object runs eager mode (chunking off): ``generate`` prefills whole
 prompts synchronously, nothing waits in the queues, and a step is
 decode-only.
+
+Spans (``serving/metrics.py``, with the engine's metrics on): each step is
+an ``engine.step`` span keyed by its number, with the children
+``sched.reap``, ``sched.admit``, ``sched.plan``, ``model.chunk`` (one per
+equal-length chunk forward; child ``model.chunk.sync``), ``sched.promote``
+(child ``kv.handoff`` per handoff), ``model.decode`` (child
+``model.decode.readback``) and ``engine.push``; its attributes count the
+step's ``decode_rows``, ``grid_rows`` (the fused grid's rows, padding
+included), ``chunk_tokens``, ``chunk_forwards``, ``held`` (admissions held
+behind an in-flight identical context) and ``stalls``.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from time import perf_counter_ns
 
 from repro_torch.core.prefillshare import base_prefill_chunk
 from repro_torch.device import synchronize
 from repro_torch.kvcache.blocks import PoolExhausted
 from repro_torch.serving.decode import next_pow2
-from repro_torch.serving.metrics import SPAN_CHUNK, SPAN_ROUTED
+from repro_torch.serving.metrics import (SPAN_ADMIT, SPAN_CHUNK,
+                                         SPAN_CHUNK_FWD, SPAN_CHUNK_SYNC,
+                                         SPAN_PLAN, SPAN_PROMOTE, SPAN_REAP,
+                                         SPAN_ROUTED, SPAN_STEP)
 from repro_torch.serving.scheduler.queue import POLICIES, order_requests
 
 
@@ -124,6 +138,9 @@ class ChunkedScheduler:
         self.active: list = []           # DecodeSeqs (engine dataclass)
         self.stats = SchedStats()
         self.promoted: list[int] = []    # rids in prefill-completion order
+        # this step's counts for its span: admissions held, chunk forwards,
+        # decode rows and the decode grid's rows
+        self._held = self._forwards = self._rows = self._grid = 0
 
     # ------------------------------------------------------------------
     def add(self, req: Request) -> None:
@@ -158,41 +175,64 @@ class ChunkedScheduler:
         guard tail growth; advance every active sequence one decode token;
         census the pool (sanitizer)."""
         self.stats.steps += 1
-        progress = self._reap_finished()
-        # step boundary: finalize drained unregisters (the reap may have
-        # retired a draining model's last sequence) and relayout the fused
-        # plane; lane indices are re-derived from the new plane this step
-        self.engine.models.sync()
-        # same boundary: queue depth and pool occupancy into the metrics,
-        # then the autoscaler resizes the prefill pool or the decode
-        # reserve off those signals (worker-set changes are legal only here)
-        self.engine._observe_step()
-        self.engine._autoscale_tick()
-        progress += self._admit()
-        progress += self._oversub_phase()
-        budget = self.cfg.token_budget - len(self.active)
-        progress += self._run_chunks(self._plan_chunks(budget))
-        progress += self._promote()
-        progress += self._tail_growth_guard()
-        progress += self._decode_phase()
-        if self.engine.sanitizer is not None:
-            # step boundary: every transient ref has settled, so the
-            # pool / index / holder census must hold exactly here
-            self.engine.sanitizer.check_step()
-        if progress == 0 and (self.waiting or self.prefilling
-                              or self._swap_parked()):
-            if self.engine.sched_reserve_extra > 0:
-                # the autoscaler's extra decode headroom is advisory: if it
-                # is all that blocks progress, give it back and retry
-                self.engine.sched_reserve_extra = 0
-                return
-            swap = self.engine.swap
-            raise PoolExhausted(
-                f"scheduler stalled: {len(self.waiting)} waiting / "
-                f"{len(self.prefilling)} prefilling / "
-                f"{len(swap.records) if swap is not None else 0} swapped-out "
-                f"requests cannot obtain pages and no decode is active to "
-                f"free any")
+        st, sp = self.stats, self.engine.spans
+        step_span = sp.open(SPAN_STEP, st.steps)
+        tokens0, stalls0 = st.chunk_tokens, st.stalls
+        self._held = self._forwards = self._rows = self._grid = 0
+        try:
+            phase = sp.open(SPAN_REAP)
+            progress = self._reap_finished()
+            sp.close(phase)
+            # step boundary: finalize drained unregisters (the reap may
+            # have retired a draining model's last sequence) and relayout
+            # the fused plane; lane indices are re-derived from the new
+            # plane this step
+            self.engine.models.sync()
+            # same boundary: queue depth and pool occupancy into the
+            # metrics, then the autoscaler resizes the prefill pool or the
+            # decode reserve off those signals (worker-set changes are
+            # legal only here)
+            self.engine._observe_step()
+            self.engine._autoscale_tick()
+            phase = sp.open(SPAN_ADMIT)
+            progress += self._admit()
+            sp.close(phase)
+            progress += self._oversub_phase()
+            budget = self.cfg.token_budget - len(self.active)
+            phase = sp.open(SPAN_PLAN)
+            chunks = self._plan_chunks(budget)
+            sp.close(phase)
+            progress += self._run_chunks(chunks)
+            phase = sp.open(SPAN_PROMOTE)
+            progress += self._promote()
+            sp.close(phase)
+            progress += self._tail_growth_guard()
+            progress += self._decode_phase()
+            if self.engine.sanitizer is not None:
+                # step boundary: every transient ref has settled, so the
+                # pool / index / holder census must hold exactly here
+                self.engine.sanitizer.check_step()
+            if progress == 0 and (self.waiting or self.prefilling
+                                  or self._swap_parked()):
+                if self.engine.sched_reserve_extra > 0:
+                    # the autoscaler's extra decode headroom is advisory: if
+                    # it is all that blocks progress, give it back and retry
+                    self.engine.sched_reserve_extra = 0
+                    return
+                swap = self.engine.swap
+                raise PoolExhausted(
+                    f"scheduler stalled: {len(self.waiting)} waiting / "
+                    f"{len(self.prefilling)} prefilling / "
+                    f"{len(swap.records) if swap is not None else 0} "
+                    f"swapped-out requests cannot obtain pages and no "
+                    f"decode is active to free any")
+        finally:
+            sp.close(step_span, {
+                "decode_rows": self._rows, "grid_rows": self._grid,
+                "chunk_tokens": st.chunk_tokens - tokens0,
+                "chunk_forwards": self._forwards, "held": self._held,
+                "stalls": st.stalls - stalls0}
+                if self.engine._metrics_on else None)
 
     # ---- oversubscription (serving/preempt.py) -------------------------
     def _oversub_phase(self) -> int:
@@ -225,6 +265,7 @@ class ChunkedScheduler:
             # delays admission one step; the fast path rechecks the tokens.
             if any(p.sid == r.sid and p.tok_hash == r.tok_hash
                    for p in self.prefilling):
+                self._held += 1
                 continue
             self.waiting.remove(r)
             w = self.engine._pick_worker(r.sid, r.tokens)
@@ -253,6 +294,10 @@ class ChunkedScheduler:
                 # drop-and-recompute restore: the cache-cold tail of the
                 # victim's stream is genuine recompute work
                 self.engine.stats.recompute_tokens += r.n - r.done
+            else:
+                ph = self.engine._phases.get(r.rid)
+                if ph is not None:
+                    ph.cached = r.done
             self.prefilling.append(r)
             admitted += 1
         return admitted
@@ -300,6 +345,7 @@ class ChunkedScheduler:
         if not chunks:
             return 0
         eng = self.engine
+        sp, phases = eng.spans, eng._phases
         groups: dict[int, list] = {}
         for r, start, take in chunks:
             groups.setdefault(take, []).append((r, start))
@@ -317,17 +363,30 @@ class ChunkedScheduler:
                 toks[i] = r.tokens[start:start + S]
                 bt[i][:len(r.block_table)] = r.block_table
                 pos[i] = start
+            c0 = perf_counter_ns() if phases else 0
+            span = sp.open(SPAN_CHUNK_FWD)
             t0 = time.perf_counter()
             base_prefill_chunk(eng.cfg, eng.base_params, toks,
                                pool=eng.kvpool, block_tables=bt, pos=pos)
+            sync = sp.open(SPAN_CHUNK_SYNC)
             synchronize(eng.device)        # the router's EWMA needs real time
+            sp.close(sync)
             dt = time.perf_counter() - t0
+            sp.close(span, {"B": B, "S": S, "npages": npages,
+                            "rids": [r.rid for r, _ in items]}
+                     if eng._metrics_on else None)
+            c1 = perf_counter_ns() if phases else 0
+            self._forwards += 1
             for r, _ in items:
                 r.done += S
                 r.worker.pending_chunk_tokens -= S
                 r.worker.ewma.observe(S, dt / B)
                 eng.metrics_registry.trace(r.rid).event(
                     SPAN_CHUNK, tokens=S, done=r.done)
+                ph = phases.get(r.rid) if r.resume_seq is None else None
+                if ph is not None:
+                    ph.chunk0 = ph.chunk0 or c0
+                    ph.chunk1 = c1
             eng.stats.prefill_tokens_computed += B * S
             self.stats.chunks += B
             self.stats.chunk_tokens += B * S
@@ -388,6 +447,7 @@ class ChunkedScheduler:
                     self._commit_request(r)
                 self.prefilling.remove(r)
                 self.promoted.append(r.rid)
+                self._mark_promoted(r.rid)
                 self.engine._finish_prefill_only(r.rid)
                 promoted += 1
                 continue
@@ -422,8 +482,14 @@ class ChunkedScheduler:
                 self.engine.swap.finish_recompute_resume(r, seq)
             else:
                 self.promoted.append(r.rid)
+                self._mark_promoted(r.rid)
             promoted += 1
         return promoted
+
+    def _mark_promoted(self, rid: int) -> None:
+        ph = self.engine._phases.get(rid)
+        if ph is not None:
+            ph.promote = perf_counter_ns()
 
     # ---- decode --------------------------------------------------------
     def _reap_finished(self) -> int:
@@ -451,5 +517,6 @@ class ChunkedScheduler:
         if not self.active:
             return 0
         stepped = list(self.active)
-        self.engine.decode_step(stepped)
+        self._grid = self.engine.decode_step(stepped)
+        self._rows = len(stepped)
         return len(stepped)
