@@ -18,7 +18,8 @@ from types import SimpleNamespace
 
 NAMES = ("engine.step_ms", "sched.host_ms", "model.decode_host_ms",
          "model.chunk_host_ms", "engine.device_wait_ms",
-         "engine.decode_pad_pct", "sched.queue_wait_p95_s")
+         "engine.decode_pad_pct", "sched.queue_wait_p95_s",
+         "model.decode_graph_pct")
 
 
 def _self_per_step(res):

@@ -274,12 +274,15 @@ def paged_decode_rows(q, k, v, k_pages, v_pages, block_tables, pos, *,
 
     q: (N, Hq, D); k/v: (N, Hkv, D) post-rope; k/v_pages: (P, page, Hkv, D);
     block_tables: (N, npages) int32; pos: (N,) int32 position of the token.
-    rows: None (every row is real) or an int64 device tensor of the real
-    rows' indices: only those rows write the pool, so rows padded into a
-    batch write nothing (sentinel page 0 stays zero); they still attend,
-    over sentinel page 0, and nothing reads their outputs. Written pages
-    are private per sequence (fresh decode pages, or the handoff's
-    copy-on-write clone), so the scatter never collides."""
+    rows: None (every row is real) or an int32/int64 device tensor of the
+    indices of the rows that write the pool, so rows padded into a batch
+    write nothing (sentinel page 0 stays zero); they still attend, over
+    sentinel page 0, and nothing reads their outputs. An index may repeat
+    (the fused plane pads ``rows`` to a fixed length with the first real
+    row's index): duplicates carry identical values, so ``index_put_`` is
+    deterministic. Written pages are private per sequence (fresh decode
+    pages, or the handoff's copy-on-write clone), so distinct rows never
+    collide."""
     page = k_pages.shape[1]
     bt, pos_w = block_tables, pos
     if rows is not None:

@@ -464,14 +464,18 @@ def _functional_layers(cfg, params, x, cache, pos, enc_out, remat):
     return x, new, aux
 
 
-def _embed(cfg, table, index):
+def _embed(cfg, table, index, host_scale: bool = False):
     """Embedding rows times sqrt(d), in the model dtype (the reference's
     ``jnp.asarray(sqrt(d), dtype)``). ``index`` is a token tensor, or a
-    (model ids, tokens) pair for a stacked table."""
+    (model ids, tokens) pair for a stacked table. ``host_scale``: the
+    scale as a 0-dim host tensor, which a product on the card takes as a
+    kernel argument, with no copy to the card (a CUDA-graph capture allows
+    none); the same numbers."""
     rows = table[index] if isinstance(index, tuple) else embed_lookup(table,
                                                                       index)
     return rows * torch.tensor(
-        cfg.d_model ** 0.5, dtype=table.dtype, device=table.device)
+        cfg.d_model ** 0.5, dtype=table.dtype,
+        device="cpu" if host_scale else table.device)
 
 
 def encode(cfg: ModelConfig, params, embeds):
@@ -557,8 +561,11 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
     carry pos 0 and a block table of sentinel page 0). k/v_layers: each
     layer's (P, page, Hkv, D) pool pages in execution order, shared by all
     models. block_tables: (M * Bmax, npages) int32. rows: None when every
-    row is real, else an int64 device tensor of the real rows' flat indices
-    m * Bmax + b; only those rows write the pool. Projections and MLPs are
+    row is real, else an integer device tensor of flat indices m * Bmax + b
+    (``attention.paged_decode_rows``): only those rows write the pool; the
+    fused plane passes M * Bmax of them, the real rows' and then repeats of
+    the first. Nothing in the step copies from the host, so a CUDA graph
+    can capture it (``serving.decode``). Projections and MLPs are
     batched matrix products over the model axis; attention is one
     ``paged_decode`` launch per layer over all M * Bmax rows, each real row
     writing its K/V straight into the shared pool. An MoE layer routes each
@@ -569,11 +576,12 @@ def decode_stacked(cfg: ModelConfig, stacked, tokens, pos, k_layers,
     if lanes is None:
         top = stacked
         mid = torch.arange(M, device=tokens.device)[:, None]
-        x = _embed(cfg, top["embed"], (mid, tokens.long()))   # (M, Bmax, d)
+        x = _embed(cfg, top["embed"], (mid, tokens.long()),   # (M, Bmax, d)
+                   host_scale=True)
         layers = ((lp, None) for lp, _ in _layers(cfg, stacked, None, axis=1))
     else:
         top = stacked["base"]                # untargeted: the one base copy
-        x = _embed(cfg, top["embed"], tokens)
+        x = _embed(cfg, top["embed"], tokens, host_scale=True)
         layers = ((lp, ab) for (lp, _), (ab, _) in zip(
             _layers(cfg, top, None), _layers(cfg, stacked["ab"], None,
                                              axis=1)))

@@ -214,6 +214,12 @@ class EngineStats:
         "engine_decode_tokens_total", "tokens generated across all sequences")
     decode_dispatches = _CounterField(
         "engine_decode_dispatches_total", "decode forwards issued")
+    decode_graph_replays = _CounterField(
+        "engine_decode_graph_replays_total",
+        "fused decode forwards replayed from a CUDA graph")
+    decode_graph_captures = _CounterField(
+        "engine_decode_graph_captures_total",
+        "CUDA graphs of the fused decode forward captured")
     model_churn_events = _CounterField(
         "engine_model_churn_events_total",
         "accepted register/unregister mutations")
@@ -247,7 +253,8 @@ class EngineStats:
 
     FIELDS = ("prefill_tokens_computed", "prefill_tokens_reused", "handoffs",
               "handoff_bytes", "cow_page_copies", "decode_steps",
-              "decode_tokens", "decode_dispatches", "model_churn_events",
+              "decode_tokens", "decode_dispatches", "decode_graph_replays",
+              "decode_graph_captures", "model_churn_events",
               "plane_rebuilds", "relay_publishes", "relay_pages_published",
               "relay_skipped", "preemptions", "swap_out_pages",
               "swap_in_pages", "recompute_tokens", "swap_bytes")
@@ -1388,11 +1395,16 @@ class LocalDisaggEngine:
         sp = self.spans
         span = sp.open(SPAN_DECODE)
         self._grow_tail_pages(seqs)
-        if self.decode_plane is not None:
-            before = self.decode_plane.dispatches
-            nxt = self.decode_plane.step(seqs)
-            self.stats.decode_dispatches += self.decode_plane.dispatches - before
-            grid_rows = self.decode_plane.grid_rows
+        plane = self.decode_plane
+        if plane is not None:
+            before = (plane.dispatches, plane.graph_replays,
+                      plane.graph_captures)
+            nxt = plane.step(seqs)
+            st = self.stats
+            st.decode_dispatches += plane.dispatches - before[0]
+            st.decode_graph_replays += plane.graph_replays - before[1]
+            st.decode_graph_captures += plane.graph_captures - before[2]
+            grid_rows = plane.grid_rows
         else:
             nxt = [0] * len(seqs)
             by_model: dict[str, list] = {}

@@ -46,7 +46,9 @@ equal-length chunk forward; child ``model.chunk.sync``), ``sched.promote``
 ``model.decode.readback``) and ``engine.push``; its attributes count the
 step's ``decode_rows``, ``grid_rows`` (the fused grid's rows, padding
 included), ``chunk_tokens``, ``chunk_forwards``, ``held`` (admissions held
-behind an in-flight identical context) and ``stalls``.
+behind an in-flight identical context), ``stalls``, ``decode_forwards``
+(the step's decode forwards) and ``decode_graphed`` (how many of them were
+replayed from a CUDA graph).
 """
 from __future__ import annotations
 
@@ -175,9 +177,10 @@ class ChunkedScheduler:
         guard tail growth; advance every active sequence one decode token;
         census the pool (sanitizer)."""
         self.stats.steps += 1
-        st, sp = self.stats, self.engine.spans
+        st, sp, es = self.stats, self.engine.spans, self.engine.stats
         step_span = sp.open(SPAN_STEP, st.steps)
         tokens0, stalls0 = st.chunk_tokens, st.stalls
+        forwards0, graphed0 = es.decode_dispatches, es.decode_graph_replays
         self._held = self._forwards = self._rows = self._grid = 0
         try:
             phase = sp.open(SPAN_REAP)
@@ -231,7 +234,9 @@ class ChunkedScheduler:
                 "decode_rows": self._rows, "grid_rows": self._grid,
                 "chunk_tokens": st.chunk_tokens - tokens0,
                 "chunk_forwards": self._forwards, "held": self._held,
-                "stalls": st.stalls - stalls0}
+                "stalls": st.stalls - stalls0,
+                "decode_forwards": es.decode_dispatches - forwards0,
+                "decode_graphed": es.decode_graph_replays - graphed0}
                 if self.engine._metrics_on else None)
 
     # ---- oversubscription (serving/preempt.py) -------------------------

@@ -960,3 +960,140 @@ def test_simulator_full_width_summary_completes(card):
                                     seed=0)).run()
         assert r["sessions_done"] == 24, r
         assert np.isfinite(r["p95_e2e_s"]) and r["throughput_tok_s"] > 0
+
+
+# ======================================================================
+# CUDA graphs of the fused decode forward (serving/decode.py)
+
+
+def _graph_engines(card, model, dtype, n_layers=2, **engine_kw):
+    """``(cfg, graphed, eager)``: two engines over the same weights
+    (``launch.main_path``'s base and two stacked decoders, cut to
+    ``n_layers``), the second with its decode graphs switched off."""
+    from repro_torch.core.lora import unstack_params
+    from repro_torch.launch import main_path
+    cfg, base, stacked = main_path.build_weights(model, n_layers, card, dtype)
+    decs = dict(zip(main_path.DECODERS, unstack_params(stacked, 2)))
+    engines = [LocalDisaggEngine(cfg, base, decs, device=card, num_pages=256,
+                                 page_size=16, **engine_kw)
+               for _ in range(2)]
+    for g in engines[1].decode_plane.groups:
+        g.graphed = False
+    return cfg, engines[0], engines[1]
+
+
+def _graph_rounds(eng, cfg, models=("m0", "m1"), seed=5, sampled=True):
+    """Five requests over a 20-token shared context, greedy and (with
+    ``sampled``) seeded sampled by turns, answering 40-88 tokens: the
+    block tables grow from 2 to 8 pages of 16 (npages 2 -> 4 -> 8) and the
+    batch bucket falls from 4 to 1 as requests finish. Returns the tokens
+    and the paged_decode launches counted."""
+    rng = np.random.default_rng(seed)
+    ctx = [int(t) for t in rng.integers(4, cfg.vocab_size, 20)]
+    launches = paged_decode_attention.launches
+    with eng.shared_context(ctx) as sc:
+        reqs = [sc.generate(models[i % len(models)],
+                            [int(t) for t in rng.integers(4, 60, 3 + i)],
+                            SamplingParams(max_tokens=40 + 12 * i,
+                                           temperature=0.8 * (i % 2)
+                                           * sampled,
+                                           top_p=0.9, seed=100 + i))
+                for i in range(5)]
+        eng.run()
+    return ([r.result().tolist() for r in reqs],
+            paged_decode_attention.launches - launches)
+
+
+def _pool_page0_zero(eng):
+    kv = eng.kvpool
+    return (all(not a[:, 0].any() for a in (*kv.k_groups.values(),
+                                             *kv.v_groups.values()))
+            and all(not a[0].any() for a in (*kv.k_tail, *kv.v_tail)))
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["eager", "chunked"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_graph_tokens_equal_eager(card, dtype, chunked):
+    """Llama-3.1-8B at full width, 2 layers (chip_smoke phases 4-6 and 8's
+    shapes): greedy and seeded tokens replayed from graphs equal those of
+    the same step run eagerly, across two npages buckets; every forward is
+    captured once or replayed, and the launches counted stay one
+    paged_decode a layer a forward."""
+    from repro_torch.launch import main_path
+    kw = main_path.CHUNKED if chunked else {}
+    cfg, graphed, eager = _graph_engines(card, "llama31-8b", dtype, **kw)
+    got, n_got = _graph_rounds(graphed, cfg)
+    want, n_want = _graph_rounds(eager, cfg)
+    assert got == want
+    s, e = graphed.stats, eager.stats
+    assert s.decode_graph_captures >= 3 and s.decode_graph_replays > 0
+    assert s.decode_graph_captures + s.decode_graph_replays \
+        == s.decode_dispatches
+    assert e.decode_graph_captures == e.decode_graph_replays == 0
+    assert n_got == cfg.n_layers * s.decode_dispatches
+    assert n_want == cfg.n_layers * e.decode_dispatches
+    assert _pool_page0_zero(graphed)
+
+
+def test_decode_graph_replays_granite_moe_group(card):
+    """A granite-moe-3b-a800m group (40 experts top-8; a query group of 3
+    at head_dim 64) at full width, 2 layers: its decode replays, with the
+    eager tokens."""
+    cfg, graphed, eager = _graph_engines(card, "granite-moe-3b-a800m",
+                                         "bfloat16")
+    assert _graph_rounds(graphed, cfg)[0] == _graph_rounds(eager, cfg)[0]
+    assert graphed.stats.decode_graph_replays > 0
+    assert _pool_page0_zero(graphed)
+
+
+def test_plane_rebuilt_by_churn_recaptures_on_card(card):
+    """A model registered mid-run relayouts the plane: the new plane
+    captures its own graphs, and the card's greedy tokens still equal the
+    CPU's over both rounds."""
+    cfg, cpu = _toy_weights("hd32")
+
+    def serve(dev):
+        p = {m: tree_map(lambda t: t.to(dev), t) for m, t in cpu.items()}
+        eng = LocalDisaggEngine(cfg, p["base"], {"m0": p["m0"],
+                                                 "m1": p["m1"]},
+                                device=dev, num_pages=128, page_size=8)
+        first = _graph_rounds(eng, cfg, sampled=False)[0]
+        captured = eng.stats.decode_graph_captures
+        eng.models.register("m2", p["base"])
+        second = _graph_rounds(eng, cfg, ("m0", "m1", "m2"), seed=6,
+                               sampled=False)[0]
+        return first + second, eng, captured
+
+    want = serve("cpu")[0]
+    got, eng, captured = serve(card)
+    assert got == want
+    assert eng.stats.plane_rebuilds == 1
+    assert 0 < captured < eng.stats.decode_graph_captures
+    assert eng.decode_plane.graph_captures \
+        == eng.stats.decode_graph_captures - captured
+    assert eng.decode_plane.graph_replays > 0
+
+
+def test_profiler_sees_the_replayed_kernels_by_name(card):
+    """Under torch.profiler a replayed step's kernels keep their names and
+    device times: ``paged_decode`` and the products, which the benchmark's
+    roofline, idle and breakdown readers look up."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, eng, _ = _graph_engines(card, "llama31-8b", "bfloat16")
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        eng.generate(f"m{i % 2}", [int(t) for t in rng.integers(4, 60, 30)],
+                     SamplingParams(max_tokens=64))
+    for _ in range(4):
+        eng.step()
+    before = eng.stats.decode_graph_replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+    assert eng.stats.decode_graph_replays == before + 3
+    dev = {e.key: e.device_time_total for e in prof.key_averages()
+           if e.device_time_total > 0}
+    assert any("paged_decode" in k for k in dev), sorted(dev)
+    assert any("gemm" in k.lower() or "nvjet" in k for k in dev), sorted(dev)
